@@ -1,0 +1,125 @@
+"""Command-line interface of the PyTorch port.
+
+Port of ``iterative_cleaner_tpu/cli.py``: the reference flag surface
+(``-c -s -m -r -o -p -u -q -l --memory --bad_chan --bad_subint``) plus
+``--backend {numpy,torch}`` (default torch), ``--device`` (default cuda),
+``--kernel/--no_kernel``, ``--audit``, ``--dump_masks`` and ``--report``.
+``-z`` and the JAX package's other extensions are not yet ported.
+
+Run as ``python -m iterative_cleaner_tpu_torch`` or ``ict-clean-torch``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from iterative_cleaner_tpu_torch.config import CleanConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ict-clean-torch",
+        description="Iterative surgical RFI cleaner for pulsar archives "
+                    "(PyTorch / CUDA)",
+    )
+    p.add_argument("archive", nargs="+", help="archives to clean (.npz)")
+    p.add_argument(
+        "-c", "--chanthresh", type=float, default=5, metavar="channel_threshold",
+        help="sigma threshold for a profile to stand out against others in "
+             "the same channel (default: 5)")
+    p.add_argument(
+        "-s", "--subintthresh", type=float, default=5, metavar="subint_threshold",
+        help="sigma threshold for a profile to stand out against others in "
+             "the same subint (default: 5)")
+    p.add_argument(
+        "-m", "--max_iter", type=int, default=5, metavar="maximum_iterations",
+        help="maximum number of cleaning iterations (default: 5; must be >= 1)")
+    p.add_argument("-u", "--unload_res", action="store_true",
+                   help="save an archive containing the pulse-free residual")
+    p.add_argument("-p", "--pscrunch", action="store_true",
+                   help="pscrunch the output archive")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="do not print cleaning information")
+    p.add_argument("-l", "--no_log", action="store_true",
+                   help="do not append to clean.log")
+    p.add_argument(
+        "-r", "--pulse_region", nargs=3, type=float, default=[0, 0, 1],
+        metavar=("scaling_factor", "pulse_start", "pulse_end"),
+        help="suppress residuals in phase bins [pulse_start:pulse_end] "
+             "(dedispersed frame) by scaling_factor; 0 0 1 disables. NOTE: "
+             "the scaling factor comes FIRST — the order the original "
+             "implementation actually reads, despite its help text")
+    p.add_argument(
+        "-o", "--output", type=str, default="", metavar="output_filename",
+        help="output name; 'std' uses the pattern NAME.FREQ.MJD")
+    p.add_argument("--memory", action="store_true",
+                   help="compatibility no-op (the in-memory archive is never "
+                        "mutated, so no reload is needed)")
+    p.add_argument("--bad_chan", type=float, default=1,
+                   help="zap a whole channel when its zapped-subint fraction "
+                        "strictly exceeds this (default 1 = never)")
+    p.add_argument("--bad_subint", type=float, default=1,
+                   help="zap a whole subint when its zapped-channel fraction "
+                        "strictly exceeds this (default 1 = never)")
+    p.add_argument("--backend", choices=("numpy", "torch"), default="torch",
+                   help="compute backend (default: torch)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; fails when there is no "
+                        "CUDA device — pass 'cpu' to run on the CPU)")
+    p.add_argument("--kernel", action="store_const", const=True, default=None,
+                   dest="kernel",
+                   help="force the hand-written CUDA fit/moments kernel "
+                        "(default: auto — on whenever the device is CUDA, the "
+                        "shape fits and no residual is requested)")
+    p.add_argument("--no_kernel", action="store_const", const=False, dest="kernel",
+                   help="use the plain PyTorch route instead of the kernel")
+    p.add_argument("--audit", action="store_true",
+                   help="after each archive, replay it through the numpy "
+                        "oracle and compare the final masks")
+    p.add_argument("--dump_masks", action="store_true",
+                   help="save the per-iteration mask history as "
+                        "<output>_masks.npz")
+    p.add_argument("--report", type=str, default="", metavar="PATH",
+                   help="write a JSON run report (one object per archive)")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> CleanConfig:
+    return CleanConfig(
+        chanthresh=args.chanthresh,
+        subintthresh=args.subintthresh,
+        max_iter=args.max_iter,
+        pulse_region=tuple(args.pulse_region),
+        bad_chan=args.bad_chan,
+        bad_subint=args.bad_subint,
+        output=args.output,
+        pscrunch=args.pscrunch,
+        memory=args.memory,
+        unload_res=args.unload_res,
+        quiet=args.quiet,
+        no_log=args.no_log,
+        backend=args.backend,
+        kernel=args.kernel,
+        dump_masks=args.dump_masks,
+        audit=args.audit,
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    try:
+        cfg = config_from_args(args)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    from iterative_cleaner_tpu_torch.driver import run, write_report
+
+    reports = run(args.archive, cfg, device=args.device)
+    if args.report:
+        write_report(reports, args.report)
+    return 0 if all(r.error is None for r in reports) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

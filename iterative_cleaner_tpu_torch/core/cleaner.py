@@ -1,0 +1,241 @@
+"""Backend-agnostic iterative cleaning loop.
+
+Copies of ``IterationInfo``, ``CleanResult``, ``LoopState`` and
+``find_bad_parts`` (``iterative_cleaner_tpu/core/cleaner.py:31-196``,
+``:458-477``) and a port of ``clean_cube`` (``:199-455``) for the stepwise
+route.  The reference's iteration dynamics:
+
+- weights feed back only through the template: each step's stats use the
+  frozen original weights, while ``w_prev`` shapes the template;
+- convergence is full-history cycle detection with the pre-loop weights in
+  the history, so oscillating masks also terminate;
+- ``loops`` records the stopping iteration.
+
+The events / forensics / compile-cache hooks of the JAX package are not
+carried over; observability is a later slice.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+
+from iterative_cleaner_tpu_torch.backends.base import make_backend
+from iterative_cleaner_tpu_torch.config import CleanConfig
+
+
+#: Cubes above this size skip the advisory >1e17 magnitude scan.
+PARITY_SCAN_MAX_BYTES = 4e9
+
+
+@dataclass
+class IterationInfo:
+    index: int                 # 1-based loop counter (reference's `x`)
+    diff_weights: int          # entries changed vs the previous weights
+    rfi_frac: float            # zapped fraction after this iteration
+    duration_s: float = 0.0    # host wall-clock of this iteration's step
+    n_new_zaps: int = 0        # profiles newly zapped this iteration
+    n_unzapped: int = 0        # profiles restored this iteration
+
+
+@dataclass
+class CleanResult:
+    weights: np.ndarray        # final (nsub, nchan) weights (before bad-parts sweep)
+    test_results: np.ndarray   # last iteration's outlier scores
+    loops: int                 # stopping iteration (reference's `loops`)
+    converged: bool            # True if the mask reached a fixed point / cycle
+    iterations: list[IterationInfo] = field(default_factory=list)
+    history: list[np.ndarray] = field(default_factory=list)
+    residual: np.ndarray | None = None   # unweighted amp*t − D, dedispersed frame
+    timed: bool = False                  # iterations carry host wall-clock laps
+    termination: str = ""                # "fixed_point" | "cycle" | "max_iter"
+
+    @property
+    def rfi_frac(self) -> float:
+        if self.iterations:
+            return self.iterations[-1].rfi_frac
+        return float((self.weights == 0).mean())
+
+
+ProgressFn = Callable[[IterationInfo], None]
+
+
+class StepTimer:
+    """Host wall-clock per iteration (monotonic, high resolution)."""
+
+    def __init__(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def lap(self) -> float:
+        now = time.perf_counter()
+        dt, self._t0 = now - self._t0, now
+        return dt
+
+
+@dataclass
+class LoopState:
+    """Resumable state of the convergence loop: the weight history (cycle
+    detection), per-loop records and the stopping bookkeeping.  ``start(w)``
+    seeds the pre-loop weights into the history, as the reference seeds
+    ``test_weights`` with them."""
+
+    w_prev: np.ndarray
+    history: list[np.ndarray]
+    infos: list[IterationInfo] = field(default_factory=list)
+    test_results: np.ndarray | None = None
+    loops: int = 0
+    converged: bool = False
+    termination: str = ""
+
+    @classmethod
+    def start(cls, w_init: np.ndarray) -> "LoopState":
+        w = np.asarray(w_init, dtype=np.float32)
+        return cls(w_prev=w, history=[w.copy()])
+
+    def advance(self, backend, progress: ProgressFn | None = None,
+                timer: StepTimer | None = None) -> bool:
+        """Run one iteration; True when the loop should stop (the new mask
+        reproduced a mask in the history)."""
+        x = len(self.infos) + 1
+        test_results, new_w = backend.step(self.w_prev)
+        self.test_results = np.asarray(test_results)
+        new_w = np.asarray(new_w)
+
+        info = _iteration_info(x, self.history[-1], new_w,
+                               duration_s=timer.lap() if timer else 0.0)
+        self.infos.append(info)
+        if progress is not None:
+            progress(info)
+
+        # Full-history cycle detection, pre-loop weights included; a match
+        # against the previous mask is a fixed point, anything older a
+        # genuine oscillation.
+        fixed = np.array_equal(new_w, self.history[-1])
+        stop = fixed or any(
+            np.array_equal(new_w, old) for old in self.history[:-1])
+        self.history.append(new_w)
+        self.w_prev = new_w
+        if stop:
+            self.loops = x
+            self.converged = True
+            self.termination = "fixed_point" if fixed else "cycle"
+        return stop
+
+    def run(self, backend, max_iter: int,
+            progress: ProgressFn | None = None, timed: bool = True) -> None:
+        """Advance until convergence or ``max_iter`` total iterations."""
+        timer = StepTimer() if timed else None
+        while len(self.infos) < max_iter:
+            if self.advance(backend, progress=progress, timer=timer):
+                break
+        if not self.converged:
+            self.loops = max_iter
+            self.termination = "max_iter"
+
+    def result(self, residual: np.ndarray | None = None,
+               timed: bool = False) -> CleanResult:
+        return CleanResult(
+            weights=self.history[-1].copy(),
+            test_results=self.test_results,
+            loops=self.loops,
+            converged=self.converged,
+            iterations=self.infos,
+            history=self.history,
+            residual=residual,
+            timed=timed,
+            termination=self.termination,
+        )
+
+
+def _iteration_info(
+    index: int, prev_w: np.ndarray, new_w: np.ndarray, duration_s: float = 0.0
+) -> IterationInfo:
+    """The per-loop record the reference prints (diff vs previous weights,
+    zapped fraction), plus the churn split."""
+    return IterationInfo(
+        index=index,
+        diff_weights=int(np.sum(new_w != prev_w)),
+        rfi_frac=float((new_w.size - np.count_nonzero(new_w)) / new_w.size),
+        duration_s=duration_s,
+        n_new_zaps=int(np.sum((new_w == 0) & (prev_w != 0))),
+        n_unzapped=int(np.sum((new_w != 0) & (prev_w == 0))),
+    )
+
+
+def _parity_warnings(D: np.ndarray, w0: np.ndarray) -> None:
+    """The two documented limits of mask parity with the numpy oracle."""
+    if D.shape[-1] < 3:
+        warnings.warn(
+            "mask parity vs the numpy oracle is not guaranteed below 3 "
+            "phase bins: numpy.ma computes a mixed f32/f64 diagnostic "
+            "pipeline and a centred 2-bin profile is structurally tied, so "
+            "the device pipeline's MAD/tie classifications can flip",
+            stacklevel=3)
+    if D.size == 0 or D.nbytes > PARITY_SCAN_MAX_BYTES:
+        return
+    # Beyond ~sqrt(f32max) the oracle's mixed pipeline bifurcates (its f32
+    # fit overflows <t,t> while its f64-promoted ma.std stays finite).  Only
+    # finite magnitudes warn: ±inf/NaN poison both pipelines alike.  The
+    # scan is two host passes over the cube, hence the size cap.
+    peak = max(-float(np.nanmin(D)), float(np.nanmax(D))) * max(
+        1.0, abs(float(np.nanmax(w0))), abs(float(np.nanmin(w0))))
+    if np.isfinite(peak) and peak > 1e17:
+        warnings.warn(
+            f"data magnitude ~{peak:.1e} approaches the f32 dynamic "
+            "range (squared residuals overflow beyond ~1.8e19, and the "
+            "oracle's mixed f32/f64 pipeline bifurcates there); mask "
+            "parity is not guaranteed — inspect the input for corruption",
+            stacklevel=3)
+
+
+def clean_cube(
+    D: np.ndarray,
+    w0: np.ndarray,
+    cfg: CleanConfig,
+    progress: ProgressFn | None = None,
+    want_residual: bool = False,
+    device="cuda",
+) -> CleanResult:
+    """Run the iterative cleaner on a preprocessed cube.
+
+    D: (nsub, nchan, nbin) float32 — pscrunched, baseline-removed,
+    dedispersed.  w0: (nsub, nchan) float32 original weights.  ``device``
+    is where the torch backend runs (default the card; raises when there is
+    none); the numpy oracle ignores it.
+    """
+    if cfg.backend == "torch":
+        _parity_warnings(D, w0)
+    if want_residual:
+        # The kernel never materialises the residual, and a residual must
+        # come from a dense template (bit-exact output; the sparse update's
+        # ulp envelope is documented for scores only).
+        cfg = cfg.replace(kernel=False, incremental_template=False)
+    backend = make_backend(D, w0, cfg, device=device)
+    state = LoopState.start(w0)
+    state.run(backend, cfg.max_iter, progress=progress)
+    residual = None
+    if want_residual:
+        r = backend.residual()
+        residual = None if r is None else np.asarray(r)
+    return state.result(residual=residual, timed=True)
+
+
+def find_bad_parts(
+    weights: np.ndarray, cfg: CleanConfig
+) -> tuple[np.ndarray, int, int]:
+    """Whole-subint / whole-channel sweep.  Both passes compute their zapped
+    fraction from the same pre-sweep snapshot, with a strictly greater
+    comparison.  Returns (new_weights, n_bad_subints, n_bad_channels)."""
+    snapshot = np.asarray(weights)
+    nsub, nchan = snapshot.shape
+    out = snapshot.copy()
+
+    bad_subints = (1.0 - np.count_nonzero(snapshot, axis=1) / float(nchan)) > cfg.bad_subint
+    out[bad_subints, :] = 0.0
+    bad_channels = (1.0 - np.count_nonzero(snapshot, axis=0) / float(nsub)) > cfg.bad_chan
+    out[:, bad_channels] = 0.0
+    return out, int(bad_subints.sum()), int(bad_channels.sum())

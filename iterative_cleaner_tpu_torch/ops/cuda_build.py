@@ -1,0 +1,92 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each ``csrc/<stem>.cu`` has a plain C interface.  It is compiled with
+``nvcc`` for Hopper (``sm_90a``) into a shared library and loaded with
+``ctypes`` — seconds to build, against minutes for an extension that
+includes PyTorch's headers.  The build happens at first use, never at
+import, into ``iterative_cleaner_tpu_torch/_build/`` (git-ignored), keyed
+by a hash of the source and the flags, so an unchanged source is built once
+per checkout.  A failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on PATH, then the default
+    toolkit location."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked at $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels are built from source at first use")
+
+
+def library_path(stem: str) -> Path:
+    src = CSRC_DIR / f"{stem}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{stem}-{key}.so"
+
+
+def build(stem: str) -> Path:
+    """Compile ``csrc/<stem>.cu`` unless this exact source is built; returns
+    the library path.  The compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside it as ``.log``."""
+    out = library_path(stem)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building {stem}.cu failed (nvcc exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def build_log(stem: str) -> str:
+    log = library_path(stem).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load_library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, building it first if
+    needed."""
+    with _lock:
+        lib = _loaded.get(stem)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(stem)))
+            _loaded[stem] = lib
+        return lib
