@@ -1,32 +1,67 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py      # needs one CUDA card; about 200 s on an H100
+    python3 chip_smoke.py      # needs one CUDA card; about 270 s on an H100
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order, each with its seconds; any failure raises and the script
+exits non-zero:
 
 1. environment — torch / CUDA versions and the card's name and power limit
    (``nvidia-smi``); no CUDA device is a failure;
 2. build — every CUDA kernel of the main path, from the checkout's sources;
 3. kernel vs plain — each kernel's wrapper against its plain PyTorch version
    on the card, at the main path's shape (256 x 1024 x 1024, BASELINE.json
-   config #2) and at ragged small shapes, with fills, a pulse region, a zero
-   template and pre-zapped profiles; times the kernel, its plain version and
-   the least time the card could take (bytes or operations over its
-   published peak);
+   config #2), at the chunked route's block (32 x 1024 x 1024) and at ragged
+   small shapes, with fills, a pulse region, a zero template and pre-zapped
+   profiles; times the kernel, its plain version and the least time the
+   card could take (bytes or operations over its published peak);
 4. main path — writes the seed-42 synthetic 256 x 1024 x 1024 archive,
    cleans it through ``iterative_cleaner_tpu_torch.cli.main`` with the
-   defaults (torch backend, cuda, auto kernel, incremental template),
-   checks that the kernel ran once per loop, and that the final mask is
-   identical to the port's numpy oracle and to its kernel-off route on the
-   same preprocessed cube; times each device layer of one iteration;
-5. one JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+   defaults (torch backend, cuda, auto kernel, incremental template, the
+   warm-up thread), checks that the warm-up launched the kernel once and the
+   clean once per loop, and that the final mask is identical to the port's
+   numpy oracle and to its kernel-off route on the same preprocessed cube;
+   times each device layer of one iteration;
+5. fused loop — ``run_fused`` on the same cube: mask, loops, history
+   identical to the CLI's and the oracle's, one kernel launch per
+   iteration; ``fused_clean`` on the cube already on the card makes at most
+   one host sync per iteration plus the final fetch
+   (``torch.cuda.set_sync_debug_mode``); wall-clocks beside the stepwise
+   loop's;
+6. chunked route — ``clean_cube`` with ``chunk_block=32`` (8 blocks): the
+   announcement, mask and loops identical to the oracle, launches = blocks x
+   iterations, template passes, host→device GB/s and the uploader's
+   overlap; pinned staging against registering the host cube with
+   ``cudaHostRegister``;
+7. CLI routes — ``cli.main`` with ``--fused`` and with ``--chunk_block 8``
+   on a small archive (32 x 128 x 256): masks identical to the oracle;
+8. peak model — ``max_memory_allocated`` of whole cleans, kernel and plain
+   route, stepwise and fused, at 256 x 1024 x 1024 and 2048 x 1024 x 128
+   (same bytes, 8x the profiles), fitted as cubes plus bytes per profile and
+   held against ``parallel/autoshard``'s estimate; every fused and stepwise
+   mask there identical to the oracle / to each other; where cuFFT's
+   workspace lives;
+9. warm-up — iteration 1 of a clean in a fresh process, without and with
+   the warm-up thread first;
+10. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+   (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
+   printed, where the host cannot hold ~2.5 cubes); the kernel over the
+   whole cube (4.3e9 elements) against its plain version on slabs at its
+   start, across element 2^31 and at its end; then, from host memory, the
+   automatic route on this card and on a 32 GB budget (``ICT_HBM_BYTES``,
+   which routes it chunked), each with its peak device memory held against
+   the estimate or the budget, wall-clock and per-iteration times; masks
+   identical;
+11. one JSON line of the kernels (launches per path), then
+   ``{"ok": true, "device": ...}`` last.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -40,6 +75,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 LOFAR = (256, 1024, 1024)     # BASELINE.json config #2: nsub x nchan x nbin
+NORTH_STAR = (1024, 4096, 1024)  # BASELINE.json config #5
 T_START = time.perf_counter()
 
 
@@ -50,6 +86,42 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+@contextlib.contextmanager
+def _recording(module, name: str):
+    """Replace ``module.<name>`` (a function or a class) for the ``with``
+    block by a wrapper that keeps each object it returns or makes; yields
+    that list."""
+    orig = getattr(module, name)
+    made = []
+    if isinstance(orig, type):
+        class Recorded(orig):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+        wrapper = Recorded
+    else:
+        def wrapper(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            made.append(out)
+            return out
+    setattr(module, name, wrapper)
+    try:
+        yield made
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def _stderr_to(buf: io.StringIO):
+    """Capture stderr into ``buf`` and echo it to the log afterwards."""
+    try:
+        with contextlib.redirect_stderr(buf):
+            yield buf
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"  stderr: {line}")
 
 
 def phase_environment():
@@ -122,6 +194,8 @@ def phase_kernel_parity():
     cases = [
         ("lofar, valid", LOFAR, True, (0.0, 0.0, 1.0), {}),
         ("lofar, raw maps", LOFAR, False, (0.0, 0.0, 1.0), {}),
+        ("32x1024x1024 (a chunked block), valid", (32, 1024, 1024), True,
+         (0.0, 0.0, 1.0), {}),
         ("5x33x100, raw maps", (5, 33, 100), False, (0.0, 0.0, 1.0), {}),
         ("5x33x100, valid", (5, 33, 100), True, (0.0, 0.0, 1.0), {}),
         ("8x128x96, valid, pulse region", (8, 128, 96), True, region, {}),
@@ -201,6 +275,7 @@ def phase_main_path(entry):
     import torch
 
     from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.backends import torch_backend
     from iterative_cleaner_tpu_torch.config import CleanConfig
     from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
     from iterative_cleaner_tpu_torch.io.npz import NpzIO
@@ -224,7 +299,8 @@ def phase_main_path(entry):
             torch.cuda.reset_peak_memory_stats()
             fk.fused_fit_moments.launches = 0
             t0 = time.perf_counter()
-            rc = cli.main([path, "-q", "--dump_masks", "--report", report_path])
+            with _recording(torch_backend, "start_precompile") as warm:
+                rc = cli.main([path, "-q", "--dump_masks", "--report", report_path])
             wall = time.perf_counter() - t0
             launches = fk.fused_fit_moments.launches
         finally:
@@ -239,9 +315,17 @@ def phase_main_path(entry):
         log(f"CLI clean: rc={rc} wall={wall:.2f}s loops={loops} converged={rep['converged']} "
             f"peak_device_mem={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         log("  per-iteration wall-clock (s): " + ", ".join(f"{s:.4f}" for s in iters))
+        # The warm-up's dummy step (the route once on a zero cube while the
+        # host preprocesses) launches once; the clean once per loop.
+        check(len(warm) == 1 and warm[0] is not None, "the CLI started no warm-up")
+        check(warm[0].error is None, f"the warm-up failed: {warm[0].error!r}")
+        warm_launches = warm[0].launches
+        check(warm_launches == 1, f"the warm-up launched the kernel {warm_launches} times")
+        launches -= warm_launches
         check(launches > 0, "the main path never launched the kernel")
-        check(launches == len(iters) == loops,
-              f"kernel launches {launches} != iterations {len(iters)} / loops {loops}")
+        check(launches == len(iters) and len(iters) == loops,
+              f"kernel launches {launches} (warm-up's {warm_launches} apart) != "
+              f"iterations {len(iters)} (loops {loops})")
         t0 = time.perf_counter()
         served = NpzIO().load(out_path).weights
         load_s = time.perf_counter() - t0
@@ -251,6 +335,7 @@ def phase_main_path(entry):
         with np.load(out_path + "_masks.npz") as z:
             check(np.array_equal(z["history"][-1], served), "mask dump != cleaned weights")
             scores = z["test_results"]
+            history = z["history"]
         check(scores.shape == (nsub, nchan), f"scores shape {scores.shape}")
         n_zapped = int((served == 0).sum())
         log(f"  zapped {n_zapped} / {served.size} profiles "
@@ -264,10 +349,11 @@ def phase_main_path(entry):
             f"{time.perf_counter() - t0:.1f}s")
 
         t0 = time.perf_counter()
+        before = fk.fused_fit_moments.launches
         off = clean_cube(D, w0, CleanConfig(backend="torch", kernel=False), device="cuda")
         log(f"kernel-off route (plain PyTorch on the card): loops={off.loops} "
             f"in {time.perf_counter() - t0:.2f}s")
-        check(fk.fused_fit_moments.launches == launches, "the kernel-off route launched it")
+        check(fk.fused_fit_moments.launches == before, "the kernel-off route launched it")
         check(np.array_equal(off.weights, served), "mask differs from the kernel-off route")
         check(off.loops == loops, "loops differ from the kernel-off route")
 
@@ -287,6 +373,9 @@ def phase_main_path(entry):
         log(f"  mask identical to the oracle and the kernel-off route; "
             f"max score drift vs oracle {drift:.3e}")
     entry["launches"] = launches
+    return {"D": D, "w0": w0, "served": served, "history": history, "loops": loops,
+            "converged": rep["converged"], "iteration_s": iters, "oracle": ora,
+            "warm_launches": warm_launches}
 
 
 def layer_times(D, w0, served) -> None:
@@ -321,13 +410,593 @@ def layer_times(D, w0, served) -> None:
     torch.cuda.empty_cache()
 
 
+def _count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``; returns its
+    result and the source lines of the synchronising calls it made."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    where = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return out, where
+
+
+def phase_fused(lofar) -> int:
+    """run_fused on the main path's preprocessed cube; the device-resident
+    loop's host syncs."""
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch.backends.torch_backend import (
+        fused_clean,
+        kernel_for,
+        run_fused,
+        to_device,
+    )
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+
+    D, w0, ora = lofar["D"], lofar["w0"], lofar["oracle"]
+    cfg = CleanConfig(backend="torch", fused=True)
+    run_fused(D, w0, cfg)   # settles the allocator for this route; not counted
+    torch.cuda.empty_cache()
+    fk.fused_fit_moments.launches = 0
+    t0 = time.perf_counter()
+    test, w_final, loops, done, x, history = run_fused(D, w0, cfg)
+    fused_host_s = time.perf_counter() - t0
+    launches = fk.fused_fit_moments.launches
+    log(f"fused loop (run_fused from host arrays): loops={loops} converged={done} x={x} "
+        f"launches={launches} in {fused_host_s:.4f}s")
+    check(launches == x, f"fused kernel launches {launches} != iterations {x}")
+    check(np.array_equal(w_final, lofar["served"]), "fused mask differs from the CLI's")
+    check(np.array_equal(w_final, ora.weights), "fused mask differs from the oracle's")
+    check((loops, done) == (lofar["loops"], lofar["converged"]) == (ora.loops, ora.converged),
+          "fused loops/converged differ from the CLI's / the oracle's")
+    check(history.shape == lofar["history"].shape
+          and np.array_equal(history, lofar["history"]), "fused history != CLI history")
+    fin = np.isfinite(ora.test_results) & np.isfinite(test)
+    drift = float(np.max(np.abs(test[fin] - ora.test_results[fin])
+                         / np.maximum(np.abs(ora.test_results[fin]), 1.0)))
+    log(f"  mask, loops, converged and history identical to the CLI and the oracle; "
+        f"max score drift vs oracle {drift:.3e}")
+
+    # The loop on the cube already on the card (run_fused after its upload),
+    # with its final fetch: host syncs and device-resident wall-clock.
+    dev = torch.device("cuda")
+    Dt, wt = to_device(D, dev), to_device(w0, dev)
+    vt = wt != 0
+    kw = dict(max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
+              use_kernel=kernel_for(cfg, D.shape[-1], dev),
+              incremental=cfg.incremental_template)
+
+    def loop_and_fetch() -> int:
+        t, _w, _l, _d, n, _r, hist = fused_clean(
+            Dt, wt, vt, float(cfg.chanthresh), float(cfg.subintthresh), **kw)
+        torch.cat((t[None], hist[: n + 1])).cpu()
+        return n
+
+    loop_and_fetch()
+    t0 = time.perf_counter()
+    x_dev, syncs = _count_syncs(loop_and_fetch)
+    device_s = time.perf_counter() - t0
+    log(f"  fused_clean on the device-resident cube: x={x_dev} in {device_s:.4f}s, "
+        f"host syncs {len(syncs)} {syncs}")
+    check(x_dev == x, "the device-resident loop ran another number of iterations")
+    check(len(syncs) <= x + 1, f"{len(syncs)} host syncs in {x} iterations + the final "
+          f"fetch: {syncs}")
+    del Dt, wt, vt
+    m = torch.rand(LOFAR[0] * LOFAR[1], device="cuda") < 1e-3
+    _, ns = _count_syncs(lambda: torch.nonzero_static(m, size=512, fill_value=0))
+    log(f"  torch.nonzero_static on the card: {len(ns)} host syncs")
+    del m
+
+    t0 = time.perf_counter()
+    step = clean_cube(D, w0, CleanConfig(backend="torch"), device="cuda")
+    step_s = time.perf_counter() - t0
+    check(np.array_equal(step.weights, w_final), "stepwise mask differs from the fused")
+    log(f"  wall-clock from host arrays: fused {fused_host_s:.4f}s, stepwise "
+        f"{step_s:.4f}s (its iterations: "
+        + ", ".join(f"{i.duration_s:.4f}" for i in step.iterations) + ")")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_chunked(lofar) -> int:
+    """clean_cube with chunk_block=32 on the main path's cube (8 blocks)."""
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch.backends.torch_backend import INCREMENTAL_TEMPLATE_BUDGET
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.ingest import pipeline
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.parallel import chunked
+
+    D, w0, ora = lofar["D"], lofar["w0"], lofar["oracle"]
+    block = 32
+    nblocks = -(-D.shape[0] // block)
+    pipeline.reset_stats()
+    fk.fused_fit_moments.launches = 0
+    t0 = time.perf_counter()
+    with _stderr_to(io.StringIO()) as said, _recording(chunked, "ChunkedTorchCleaner") as made:
+        res = clean_cube(D, w0, CleanConfig(backend="torch", chunk_block=block), device="cuda")
+    wall = time.perf_counter() - t0
+    launches = fk.fused_fit_moments.launches
+    st = pipeline.stats_snapshot()
+    check(f"--chunk_block override; streaming {block}-subint blocks" in said.getvalue(),
+          "clean_cube did not announce the chunked route")
+    check(len(made) == 1, f"clean_cube made {len(made)} chunked backends")
+    backend = made[0]
+    up = backend.uploader
+    log(f"chunked route (clean_cube, chunk_block={block}, {nblocks} blocks): loops={res.loops} "
+        f"launches={launches} template_passes={backend.template_passes} in {wall:.3f}s "
+        f"(iterations: " + ", ".join(f"{i.duration_s:.4f}" for i in res.iterations) + ")")
+    check(launches == nblocks * len(res.iterations),
+          f"chunked launches {launches} != {nblocks} blocks x {len(res.iterations)} iterations")
+    check(np.array_equal(res.weights, ora.weights), "chunked mask differs from the oracle's")
+    check((res.loops, res.converged, res.termination)
+          == (ora.loops, ora.converged, ora.termination),
+          "chunked loops/converged/termination differ from the oracle's")
+    # The streamed template pass runs in iteration 1 and wherever more
+    # profiles flipped than the sparse update's budget.
+    flips = [int((a != b).sum()) for a, b in zip(res.history[1:-1], res.history[:-2])]
+    want = 1 + sum(f > INCREMENTAL_TEMPLATE_BUDGET for f in flips)
+    log(f"  profiles flipped before iterations 2..: {flips} (sparse budget "
+        f"{INCREMENTAL_TEMPLATE_BUDGET}); template passes {backend.template_passes}, "
+        f"expected {want}")
+    check(backend.template_passes == want, "template passes differ from the budget rule")
+    log(f"  staged {st['blocks']} blocks, {st['bytes'] / 1e9:.3f} GB: host->device "
+        f"{st['effective_gbps']:.2f} GB/s over the upload busy time {st['upload_busy_s']:.4f}s "
+        f"(of which host memcpy into pinned buffers {up.copy_s:.4f}s, "
+        f"{st['bytes'] / 1e9 / up.copy_s:.2f} GB/s); stall {st['stall_s']:.4f}s, "
+        f"overlap efficiency 1 - stall/upload = {st['overlap_efficiency']:.4f}")
+    del backend, up, made
+
+    # Staging through pinned buffers against registering the host cube.
+    cudart = torch.cuda.cudart()
+    host = np.ascontiguousarray(D)
+    slab = torch.empty((block, *D.shape[1:]), dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    err = cudart.cudaHostRegister(host.ctypes.data, host.nbytes, 0)
+    reg_s = time.perf_counter() - t0
+    check(int(err) == 0, f"cudaHostRegister failed: {err}")
+    try:
+        src = torch.from_numpy(host)
+        t0 = time.perf_counter()
+        for lo in range(0, D.shape[0], block):
+            slab.copy_(src[lo:lo + block], non_blocking=True)
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+    finally:
+        cudart.cudaHostUnregister(host.ctypes.data)
+    pass_s = st["upload_busy_s"] / (st["blocks"] / nblocks)
+    log(f"  registered host cube: cudaHostRegister {reg_s:.4f}s for {host.nbytes / 1e9:.3f} GB, "
+        f"then one pass host->device {direct_s:.4f}s ({host.nbytes / 1e9 / direct_s:.2f} GB/s), "
+        f"against {pass_s:.4f}s per pass through the pinned staging buffers")
+    del slab, src
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_cli_routes() -> dict:
+    """cli.main with --fused and with --chunk_block 8 on a small archive."""
+    import numpy as np
+
+    from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.backends import torch_backend
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.io.npz import NpzIO
+    from iterative_cleaner_tpu_torch.io.synthetic import make_archive
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+
+    shape = (32, 128, 256)
+    ar = make_archive(nsub=shape[0], nchan=shape[1], nbin=shape[2], seed=7)
+    ora = clean_cube(*preprocess(ar), CleanConfig(backend="numpy"))
+    launches = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ict_cli_") as tmp:
+        path = os.path.join(tmp, "small.npz")
+        NpzIO().save(ar, path)
+        os.chdir(tmp)
+        try:
+            for name, flags in (("cli_fused", ["--fused"]),
+                                ("cli_chunked", ["--chunk_block", "8"])):
+                fk.fused_fit_moments.launches = 0
+                with _stderr_to(io.StringIO()) as err, \
+                        _recording(torch_backend, "start_precompile") as warm:
+                    rc = cli.main([path, "-q", "-l", "--dump_masks", *flags])
+                n = fk.fused_fit_moments.launches
+                check(rc == 0, f"cli.main {flags} returned {rc}")
+                warm_n = warm[0].launches if warm and warm[0] is not None else 0
+                served = NpzIO().load(path + "_cleaned.npz").weights
+                with np.load(path + "_cleaned.npz_masks.npz") as z:
+                    loops = int(z["loops"])
+                log(f"CLI {' '.join(flags)} on {shape}: loops={loops} launches={n} "
+                    f"(warm-up {warm_n}), zapped {int((served == 0).sum())}")
+                check(np.array_equal(served, ora.weights), f"CLI {flags}: mask != oracle")
+                check(loops == ora.loops, f"CLI {flags}: loops != oracle")
+                if name == "cli_chunked":
+                    check("streaming 8-subint blocks" in err.getvalue(),
+                          "the CLI's chunked route was not announced")
+                    check(warm_n == 0 and n == 4 * loops,
+                          f"CLI --chunk_block 8: launches {n} != 4 blocks x {loops}")
+                else:
+                    check(n - warm_n == loops, f"CLI --fused: launches {n - warm_n} != {loops}")
+                launches[name] = n - warm_n
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def phase_peak_model(lofar) -> None:
+    """Peak device bytes of whole cleans per route at two shapes of the same
+    bytes, fitted as cubes plus bytes per profile and held against
+    parallel/autoshard's estimate; the masks of those cleans."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.io.synthetic import make_preprocessed_cube
+    from iterative_cleaner_tpu_torch.ops import stats
+    from iterative_cleaner_tpu_torch.parallel import autoshard
+
+    D, w0, ora = lofar["D"], lofar["w0"], lofar["oracle"]
+    wide = (2048, 1024, 128)   # LOFAR's bytes, 8x its profiles
+    Dn, wn = make_preprocessed_cube(*wide, seed=11, device="cuda")
+    cubes = {LOFAR: (D, w0), wide: (Dn.cpu().numpy(), wn.cpu().numpy())}
+    del Dn, wn
+    masks = {}
+    for route, kernel in (("kernel", True), ("plain", False)):
+        peaks = {}
+        for shape, (Dc, wc) in cubes.items():
+            for fused in (False, True):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                res = clean_cube(Dc, wc, CleanConfig(backend="torch", kernel=kernel,
+                                                     fused=fused, auto_shard=False),
+                                 device="cuda")
+                peaks[shape, fused] = torch.cuda.max_memory_allocated() - base
+                masks[shape, route, fused] = res
+            log(f"peak, {route} route at {shape}: stepwise "
+                f"{peaks[shape, False] / Dc.nbytes:.4f}, fused "
+                f"{peaks[shape, True] / Dc.nbytes:.4f} cubes "
+                f"({max(peaks[shape, False], peaks[shape, True]) / 1e9:.4f} GB); "
+                f"estimate {autoshard.working_set_bytes(shape, 4, kernel) / 1e9:.4f} GB")
+        # peak = factor * cube + per_profile * profiles, from the worst loop
+        # at each shape (both cubes have the same bytes).
+        sa, sb, cube = LOFAR, wide, D.nbytes
+        pa = max(peaks[sa, False], peaks[sa, True])
+        pb = max(peaks[sb, False], peaks[sb, True])
+        na, nb = sa[0] * sa[1], sb[0] * sb[1]
+        per_profile = (pb - pa) / (nb - na)
+        factor = (pa - per_profile * na) / cube
+        log(f"  fitted {route} peak model: {factor:.4f} cubes + {per_profile:.2f} B per "
+            f"profile (autoshard: {autoshard.PEAK_CUBE_FACTOR[route]} cubes + "
+            f"{autoshard.PER_PROFILE_BYTES[route]} B)")
+        for (shape, fused), peak in peaks.items():
+            est = autoshard.working_set_bytes(shape, 4, kernel)
+            check(peak <= est, f"{route} route at {shape} (fused={fused}): peak {peak} B "
+                  f"exceeds the autoshard estimate {est} B")
+    # Every clean of this phase gives the same mask: the oracle's at LOFAR.
+    for (shape, route, fused), res in masks.items():
+        ref = ora if shape == LOFAR else masks[shape, "kernel", False]
+        check(np.array_equal(res.weights, ref.weights)
+              and (res.loops, res.converged, res.termination)
+              == (ref.loops, ref.converged, ref.termination),
+              f"{route} route at {shape} (fused={fused}): mask, loops or termination differ")
+    log(f"  every clean above: mask, loops and termination identical (the oracle's at "
+        f"{LOFAR}; zapped {int((masks[wide, 'kernel', False].weights == 0).sum())} at {wide})")
+    del cubes, masks
+
+    # The same with the FFT diagnostic as one cuFFT call over the cube.
+    pieces = stats.FFT_PIECE_ELEMENTS
+    stats.FFT_PIECE_ELEMENTS = D.size
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        clean_cube(D, w0, CleanConfig(backend="torch", auto_shard=False), device="cuda")
+        whole = (torch.cuda.max_memory_allocated() - base) / D.nbytes
+    finally:
+        stats.FFT_PIECE_ELEMENTS = pieces
+    log(f"  kernel route with one FFT call over the cube instead of {pieces}-element "
+        f"pieces: {whole:.4f} cubes")
+
+    # cuFFT's workspace: through the caching allocator, or beside it?
+    gc.collect()
+    torch.cuda.empty_cache()
+    x = torch.from_numpy(D).to("cuda")
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.synchronize()
+    free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = torch.fft.rfft(x, dim=-1)
+    torch.cuda.synchronize()
+    through = torch.cuda.max_memory_allocated() - base - y.numel() * y.element_size()
+    beside = (free0 - torch.cuda.mem_get_info()[0]) - (torch.cuda.memory_reserved() - reserved0)
+    log(f"  one cuFFT R2C over the whole {LOFAR} cube: {through / 1e9:.3f} GB of workspace "
+        f"through the caching allocator (counted by max_memory_allocated), "
+        f"{beside / 1e9:.3f} GB allocated beside it")
+    whole_diag = y.abs().amax(dim=-1)
+    del y
+    diff = float((stats.fft_diagnostic(x) - whole_diag).abs().max())
+    log(f"  FFT diagnostic in pieces against one call: max |difference| {diff:.3e} "
+        f"(cuFFT's batch size can move the last bits)")
+    del x, whole_diag
+    torch.cuda.empty_cache()
+
+
+_WARMUP_CHILD = """
+import json, sys, time
+import numpy as np
+from iterative_cleaner_tpu_torch.backends.torch_backend import start_precompile
+from iterative_cleaner_tpu_torch.config import CleanConfig
+from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+D, w0 = np.load(sys.argv[1]), np.load(sys.argv[2])
+cfg = CleanConfig(backend="torch")
+t0 = time.perf_counter()
+th = start_precompile(D.shape, cfg, device="cuda") if sys.argv[3] == "1" else None
+if th is not None:
+    th.join()
+warm_s = time.perf_counter() - t0
+res = clean_cube(D, w0, cfg, device="cuda")
+print(json.dumps({"warm_s": warm_s, "ran": th is not None,
+                  "launches": 0 if th is None else th.launches,
+                  "error": None if th is None or th.error is None else repr(th.error),
+                  "iterations": [i.duration_s for i in res.iterations],
+                  "mask": int((res.weights == 0).sum())}))
+"""
+
+
+def phase_warmup(lofar) -> None:
+    """Iteration 1 of a clean in a fresh process, without and with the
+    warm-up thread run (and joined) first."""
+    import numpy as np
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory(prefix="ict_warm_") as tmp:
+        paths = [os.path.join(tmp, n) for n in ("D.npy", "w0.npy")]
+        np.save(paths[0], lofar["D"])
+        np.save(paths[1], lofar["w0"])
+        got = {}
+        for warm in ("0", "1"):
+            proc = subprocess.run([sys.executable, "-c", _WARMUP_CHILD, *paths, warm],
+                                  capture_output=True, text=True, env=env, timeout=300)
+            check(proc.returncode == 0, f"warm-up child failed:\n{proc.stderr}")
+            got[warm] = json.loads(proc.stdout.strip().splitlines()[-1])
+    off, on = got["0"], got["1"]
+    check(on["ran"] and on["error"] is None and on["launches"] == 1,
+          f"the warm-up did not run cleanly: {on}")
+    check(off["mask"] == on["mask"] == int((lofar["served"] == 0).sum()),
+          "a warm-up child's mask differs")
+    log(f"fresh process, no warm-up: iterations "
+        + ", ".join(f"{t:.4f}" for t in off["iterations"]) + " s")
+    log(f"fresh process, warm-up first ({on['warm_s']:.3f}s, overlapping preprocessing "
+        f"on the CLI path): iterations " + ", ".join(f"{t:.4f}" for t in on["iterations"])
+        + " s")
+    log(f"  iteration 1: {off['iterations'][0]:.4f}s without the warm-up, "
+        f"{on['iterations'][0]:.4f}s with it (the CLI run above: "
+        f"{lofar['iteration_s'][0]:.4f}s)")
+
+
+def _host_available_bytes() -> int:
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _north_star_parity(Dt, wt) -> float:
+    """The kernel over the whole device cube against its plain version on
+    slabs of it: the first subints, the subints across element 2^31 and the
+    last ones (past 4e9 elements at full size).  The maths is per profile,
+    so the plain version on a slab is exact for it.  The FFT diagnostic of
+    the whole cube's centred output is held against that of each slab.
+    Returns the largest |kernel - plain| over finite map entries."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops.stats import fft_diagnostic
+    from iterative_cleaner_tpu_torch.ops.template import build_template
+
+    nsub, nchan, nbin = Dt.shape
+    valid = wt != 0
+    t = build_template(Dt, wt)
+    got = fk.fused_fit_moments(Dt, t, wt, valid)
+    fft = fft_diagnostic(got[0])
+    edge = (1 << 31) // (nchan * nbin)
+    slabs = [(0, min(8, nsub))]
+    if nsub > edge:
+        slabs.append((edge - 4, min(nsub, edge + 4)))
+    slabs.append((max(0, nsub - 24), nsub))
+    tol = {"centred": (1e-5, 1e-5), "mean": (1e-5, 1e-6),
+           "std": (1e-5, 1e-6), "ptp": (1e-5, 1e-5)}
+    max_err = 0.0
+    for lo, hi in slabs:
+        want = fk.fused_fit_moments_plain(Dt[lo:hi], t, wt[lo:hi], valid[lo:hi])
+        for key, g, w in zip(("centred", "mean", "std", "ptp"), got, want):
+            rtol, atol = tol[key]
+            torch.testing.assert_close(
+                g[lo:hi], w, rtol=rtol, atol=atol, equal_nan=True,
+                msg=lambda m, k=key, a=lo, b=hi: f"north star [{a}:{b}]: {k}: {m}")
+            fin = torch.isfinite(w)
+            if fin.any():
+                max_err = max(max_err, float((g[lo:hi][fin] - w[fin]).abs().max()))
+        zapped = wt[lo:hi] == 0
+        for key, g in zip(("centred", "mean", "std"), got):
+            check(bool((g[lo:hi][zapped] == 0).all()),
+                  f"north star [{lo}:{hi}]: {key} not exactly 0 at zapped profiles")
+        fft_slab = fft_diagnostic(got[0][lo:hi])
+        torch.testing.assert_close(fft[lo:hi], fft_slab, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m, a=lo, b=hi: f"north star fft [{a}:{b}]: {m}")
+        log(f"  kernel over the whole cube vs plain on subints [{lo}:{hi}] (elements "
+            f"{lo * nchan * nbin:.3e}..{hi * nchan * nbin:.3e}): ok, "
+            f"{int(zapped.sum())} zapped profiles; FFT diagnostic of the whole cube vs the "
+            f"slab: max |difference| {float((fft[lo:hi] - fft_slab).abs().max()):.3e}")
+        del want, fft_slab
+    log(f"  north-star kernel parity max_abs_err={max_err:.3e}")
+    return max_err
+
+
+def phase_north_star(entry) -> dict:
+    """BASELINE.json config #5 on one card: the kernel over the whole cube
+    against its plain version, then the automatic route on this card and on
+    a 32 GB budget (chunked), from host memory."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.io.synthetic import RFISpec, make_preprocessed_cube
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.parallel import autoshard
+
+    nsub, nchan, nbin = NORTH_STAR
+    cube = nsub * nchan * nbin * 4
+    # Host memory: the cube, the copy the in-memory upload may stage, and
+    # headroom for the results.
+    need = 2.5
+    avail = _host_available_bytes()
+    if avail < need * cube:
+        cut = max(8, int(avail / need / (nchan * nbin * 4)) // 8 * 8)
+        log(f"north star: host MemAvailable {avail / 1e9:.1f} GB cannot hold {need} cubes of "
+            f"{cube / 1e9:.2f} GB; nsub cut from {nsub} to {cut}")
+        nsub = cut
+    else:
+        log(f"north star: host MemAvailable {avail / 1e9:.1f} GB holds {need} cubes of "
+            f"{cube / 1e9:.2f} GB; no cut")
+    shape = (nsub, nchan, nbin)
+    t0 = time.perf_counter()
+    rfi = RFISpec(n_profile_spikes=256, n_dc_profiles=192, n_bad_channels=8,
+                  n_bad_subints=4, n_prezapped=128)
+    Dt, wt = make_preprocessed_cube(*shape, seed=5, rfi=rfi, device="cuda")
+    log(f"  made the seeded preprocessed cube {shape} ({Dt.numel() * 4 / 1e9:.2f} GB) on "
+        f"the card in {time.perf_counter() - t0:.2f}s")
+    err = _north_star_parity(Dt, wt)
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    D, w0 = Dt.cpu().numpy(), wt.cpu().numpy()
+    del Dt, wt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  copied it to host memory in {time.perf_counter() - t0:.2f}s")
+
+    cfg = CleanConfig(backend="torch")
+    budget = 32 * 10**9   # a 32 GB card
+    hbm = autoshard.device_memory_bytes("cuda")
+    for card, mem in (("this card", hbm), ("a 32 GB card", budget)):
+        for route, kernel in (("kernel", True), ("plain", False)):
+            ws = autoshard.working_set_bytes(shape, 4, kernel)
+            usable = mem * autoshard.HBM_USABLE_FRACTION
+            blk = (None if ws <= usable
+                   else autoshard.block_subints(shape, mem, use_kernel=kernel))
+            log(f"  {card}, {route} route: working set {ws / 1e9:.2f} GB against "
+                f"{usable / 1e9:.2f} GB usable -> "
+                + ("in memory" if blk is None else f"chunked, {blk}-subint blocks"))
+    results, launches = {}, {}
+    for name, mem in (("auto", None), ("auto_32gb", budget)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fk.fused_fit_moments.launches = 0
+        saved = os.environ.get("ICT_HBM_BYTES")
+        if mem is not None:
+            os.environ["ICT_HBM_BYTES"] = str(mem)
+        try:
+            block = autoshard.chunk_block_subints(shape, cfg, "cuda")
+            t0 = time.perf_counter()
+            with _stderr_to(io.StringIO()) as errbuf:
+                res = clean_cube(D, w0, cfg, device="cuda")
+            wall = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                os.environ.pop("ICT_HBM_BYTES", None)
+            else:
+                os.environ["ICT_HBM_BYTES"] = saved
+        peak = torch.cuda.max_memory_allocated()
+        launches[name] = fk.fused_fit_moments.launches
+        results[name] = res
+        route = "in memory" if block is None else f"chunked, {block}-subint blocks"
+        log(f"  {name} ({route}): loops={res.loops} converged={res.converged} "
+            f"zapped={int((res.weights == 0).sum())} wall={wall:.2f}s "
+            f"peak_device_mem={peak / 1e9:.2f} GB launches={launches[name]}; iterations "
+            + ", ".join(f"{i.duration_s:.4f}" for i in res.iterations) + " s")
+        check(("chunked clean:" in errbuf.getvalue()) == (block is not None),
+              f"north star {name}: the route announcement does not match the route")
+        check(launches[name] > 0, f"north star {name}: the kernel never launched")
+        check(np.isfinite(res.test_results).any() and res.weights.shape == shape[:2],
+              f"north star {name}: implausible result")
+        check(0 < int((res.weights == 0).sum()) < res.weights.size,
+              f"north star {name}: implausible zap count")
+        if block is None:
+            est = autoshard.working_set_bytes(shape, 4, True)
+            check(peak <= est, f"north star {name}: peak {peak} B exceeds the estimate {est} B")
+            check(launches[name] == len(res.iterations),
+                  f"north star {name}: launches != iterations")
+        else:
+            limit = (mem or hbm) * autoshard.HBM_USABLE_FRACTION
+            check(peak <= limit, f"north star {name}: peak {peak} B exceeds the "
+                  f"{limit / 1e9:.2f} GB usable budget it was sized for")
+            nblocks = -(-shape[0] // block)
+            check(launches[name] == nblocks * len(res.iterations),
+                  f"north star {name}: launches != {nblocks} blocks x iterations")
+    a, c = results["auto"], results["auto_32gb"]
+    check(np.array_equal(a.weights, c.weights) and a.loops == c.loops,
+          "north star: the two routes' masks differ")
+    log("  masks identical between the two routes")
+    del D, w0, results, a, c
+    gc.collect()
+    return {"north_star_auto": launches["auto"], "north_star_32gb": launches["auto_32gb"]}
+
+
 def main() -> int:
     phase_environment()
     import torch
 
-    phase_build()
-    entry = phase_kernel_parity()
-    phase_main_path(entry)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
+        return out
+
+    timed("build", phase_build)
+    entry = timed("kernel parity", phase_kernel_parity)
+    lofar = timed("main path", phase_main_path, entry)
+    by_path = {"stepwise_cli": entry["launches"], "cli_warm_up": lofar["warm_launches"]}
+    by_path["fused"] = timed("fused", phase_fused, lofar)
+    by_path["chunked"] = timed("chunked", phase_chunked, lofar)
+    by_path.update(timed("CLI routes", phase_cli_routes))
+    timed("peak model", phase_peak_model, lofar)
+    timed("warm-up", phase_warmup, lofar)
+    del lofar
+    by_path.update(timed("north star", phase_north_star, entry))
+    entry["launches_by_path"] = by_path
     print(json.dumps({"kernels": [entry]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,25 @@
-"""The PyTorch backend: the stepwise cleaning iteration on a device.
+"""The PyTorch backend: the cleaning iteration on a device.
 
 Port of ``iterative_cleaner_tpu/backends/jax_backend.py``:
 ``step_from_template`` / ``clean_step`` (:34-102), the incremental template
-(:105-152) and the stepwise ``JaxCleaner`` (:373-440) as ``TorchCleaner``.
-The cube goes to the device once; each ``step()`` runs template → fit /
-subtract / moments (the CUDA kernel, or the plain route) → FFT diagnostic →
-robust scalers → zap map on the device and returns host arrays, one sync per
-step.  PyTorch runs eagerly, so there is no ``jit``; the ``lax.cond`` of the
-incremental template becomes a Python ``if``.
+(:105-152), the precompile warm-up (``precompile_for`` /
+``start_precompile``, :164-281), the fused loop (``fused_clean`` /
+``run_fused``, :284-355 and :443-481) and the stepwise ``JaxCleaner``
+(:373-440) as ``TorchCleaner``.  The cube goes to the device once; each
+iteration runs template → fit / subtract / moments (the CUDA kernel, or the
+plain route) → FFT diagnostic → robust scalers → zap map on the device.
+PyTorch runs eagerly, so there is no ``jit``: the ``lax.cond`` of the
+incremental template becomes a Python ``if`` on one host read, and the
+fused ``lax.while_loop`` a Python loop over device tensors.
 
 Entry points run on the card unless the caller asks for the CPU: with no
 CUDA device and no explicit ``device="cpu"``, :func:`resolve_device` raises.
 """
 
 from __future__ import annotations
+
+import os
+import threading
 
 import numpy as np
 import torch
@@ -102,30 +108,32 @@ def clean_step(D, w0, valid, w_prev, chanthresh, subintthresh, *,
         pulse_region=pulse_region, use_kernel=use_kernel)
 
 
-def incremental_template(D, T_prev, w_prev, new_w):
-    """Next iteration's template without re-reading the cube:
-    ``T_prev + sum_changed (new_w - w_prev) * profile`` over at most
-    INCREMENTAL_TEMPLATE_BUDGET flipped profiles, gathered with
-    ``torch.nonzero`` padded to the budget (padded slots repeat profile 0
-    with a zero weight, as the JAX package's static-size gather does).
-    Rebuilt densely when more profiles flipped than the budget, or when the
-    sparse candidate is not finite (an inf/NaN profile entering or leaving
-    the support makes inf-inf = NaN where the dense build is finite)."""
+def sparse_template_candidate(D, T_prev, w_prev, new_w):
+    """``T_prev + sum_changed (new_w - w_prev) * profile`` over the first
+    INCREMENTAL_TEMPLATE_BUDGET flipped profiles (padded slots repeat
+    profile 0 with a zero weight, as the JAX package's static-size gather
+    does), and whether it may stand for the dense rebuild: not when more
+    profiles flipped than the budget, nor when it is not finite (an inf/NaN
+    profile entering or leaving the support makes inf-inf = NaN where the
+    dense build is finite).  Both stay on the device: no host sync."""
     nbin = D.shape[-1]
     budget = min(INCREMENTAL_TEMPLATE_BUDGET, w_prev.numel())
     delta = (new_w - w_prev).reshape(-1)
-    idx = torch.nonzero(delta != 0).reshape(-1)
-    nchanged = idx.numel()
-    if nchanged > budget:
-        return build_template(D, new_w)
-    idx_p = torch.zeros(budget, dtype=idx.dtype, device=idx.device)
-    idx_p[:nchanged] = idx
-    dvals = torch.zeros(budget, dtype=delta.dtype, device=delta.device)
-    dvals[:nchanged] = delta[idx]
-    T_sparse = T_prev + torch.matmul(dvals, D.reshape(-1, nbin)[idx_p])
-    if not bool(torch.isfinite(T_sparse).all()):
-        return build_template(D, new_w)
-    return T_sparse
+    changed = delta != 0
+    # Static size: the count never has to be read on the host.
+    idx = torch.nonzero_static(changed, size=budget, fill_value=0).reshape(-1)
+    nchanged = changed.sum()
+    live = torch.arange(budget, device=D.device) < nchanged
+    dvals = torch.where(live, delta[idx], torch.zeros((), dtype=delta.dtype, device=D.device))
+    T_sparse = T_prev + torch.matmul(dvals, D.reshape(-1, nbin).index_select(0, idx))
+    return T_sparse, (nchanged <= budget) & torch.isfinite(T_sparse).all()
+
+
+def incremental_template(D, T_prev, w_prev, new_w):
+    """Next iteration's template without re-reading the cube: the sparse
+    candidate where it may stand, else the dense rebuild.  One host read."""
+    T_sparse, ok = sparse_template_candidate(D, T_prev, w_prev, new_w)
+    return T_sparse if bool(ok) else build_template(D, new_w)
 
 
 def to_device(a, device) -> torch.Tensor:
@@ -138,6 +146,28 @@ def to_device(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def kernel_for(cfg: CleanConfig, nbin: int, device: torch.device,
+               want_residual: bool = False) -> bool:
+    """The fit/moments route a clean dispatches with on ``device``; a
+    forced kernel the card cannot take raises rather than running the plain
+    route."""
+    use_kernel = resolve_use_kernel(cfg, nbin, device, want_residual)
+    if use_kernel and device.type == "cuda":
+        ok, why = kernel_route_status(nbin, device)
+        if not ok:
+            raise ValueError(f"kernel=True but the CUDA kernel cannot take "
+                             f"this cube: {why}")
+    return use_kernel
+
+
+def device_for(device) -> torch.device:
+    """:func:`resolve_device`, plus the float32 matmul check on the card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_fp32_matmul()
+    return dev
+
+
 class TorchCleaner:
     """Stepwise backend: same protocol as NumpyCleaner, device-resident.
 
@@ -148,17 +178,9 @@ class TorchCleaner:
 
     def __init__(self, D: np.ndarray, w0: np.ndarray, cfg: CleanConfig,
                  device="cuda") -> None:
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            check_fp32_matmul()
+        self.device = device_for(device)
         self.cfg = cfg
-        nbin = D.shape[-1]
-        self._use_kernel = resolve_use_kernel(cfg, nbin, self.device)
-        if self._use_kernel and self.device.type == "cuda":
-            ok, why = kernel_route_status(nbin, self.device)
-            if not ok:
-                raise ValueError(f"kernel=True but the CUDA kernel cannot take "
-                                 f"this cube: {why}")
+        self._use_kernel = kernel_for(cfg, D.shape[-1], self.device)
         self._D = to_device(D, self.device)
         self._w0 = to_device(w0, self.device)
         self._valid = self._w0 != 0
@@ -186,3 +208,160 @@ class TorchCleaner:
 
     def residual(self) -> np.ndarray | None:
         return None if self._residual is None else self._residual.cpu().numpy()
+
+
+def fused_clean(D, w0, valid, chanthresh, subintthresh, *, max_iter, pulse_region,
+                want_residual=False, use_kernel=False, incremental=False):
+    """The whole convergence loop on the device.
+
+    PyTorch has no ``lax.while_loop``, so this is a Python loop over device
+    tensors under one rule: nothing of (nsub, nchan) size or larger goes to
+    the host inside the loop, and each iteration reads the host exactly
+    once — the stop flag together with the sparse-or-dense template
+    decision.  ``history`` is a (max_iter+1, nsub, nchan) ring on the device
+    with the pre-loop weights in row 0; the cycle test is
+    ``any(row_live & all(new_w == history))`` over the populated rows.
+
+    With ``incremental`` iteration 1 uses the dense template from ``w0`` and
+    later iterations the sparse update (dense when it may not stand).
+    ``want_residual`` keeps the last iteration's residual, which the kernel
+    never materialises.  Returns ``(test, w_final, loops, done, x, resid,
+    history)``: device tensors, except ``loops``/``done``/``x`` (host values,
+    already read) and ``resid`` (None without ``want_residual``).
+    """
+    if want_residual and use_kernel:
+        raise ValueError("the kernel route does not materialise the residual "
+                         "cube; use_kernel requires want_residual=False")
+    nsub, nchan = w0.shape
+    history = torch.zeros((max_iter + 1, nsub, nchan), dtype=w0.dtype, device=w0.device)
+    history[0] = w0
+    rows = torch.arange(max_iter + 1, device=w0.device)
+    kw = dict(pulse_region=pulse_region, use_kernel=use_kernel)
+    # Iteration 1's template is the dense build from the pre-loop weights on
+    # both routes; only iterations >= 2 take the sparse update.
+    template = build_template(D, w0) if incremental else None
+    w_prev, x, hit = w0, 0, False
+    while x < max_iter:
+        x += 1
+        if not incremental:
+            template = build_template(D, w_prev)
+        test, new_w, resid = step_from_template(
+            D, w0, valid, template, chanthresh, subintthresh, **kw)
+        # Rows 0..x-1 are populated.
+        hit_t = ((rows < x) & (new_w[None] == history).flatten(1).all(dim=1)).any()
+        history[x] = new_w
+        if incremental and x < max_iter:
+            cand, sparse_ok = sparse_template_candidate(D, template, w_prev, new_w)
+            hit, sparse = torch.stack((hit_t, sparse_ok)).tolist()  # the host read
+            if not hit:
+                template = cand if sparse else build_template(D, new_w)
+        else:
+            hit = bool(hit_t)  # the host read
+        w_prev = new_w
+        if hit:
+            break
+    loops = x if hit else max_iter
+    return test, w_prev, loops, bool(hit), x, (resid if want_residual else None), history
+
+
+def run_fused(D, w0, cfg: CleanConfig, want_residual: bool = False, device="cuda"):
+    """The fused clean; returns ``(test, weights, loops, converged, iters,
+    history[, residual])`` as host values.  ``history`` is the populated
+    prefix ``history[:iters+1]`` of the device ring (pre-loop weights
+    first), fetched once, together with the scores, at the end."""
+    dev = device_for(device)
+    D_t, w0_t = to_device(D, dev), to_device(w0, dev)
+    test, _w, loops, done, x, resid, history = fused_clean(
+        D_t, w0_t, w0_t != 0, float(cfg.chanthresh), float(cfg.subintthresh),
+        max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
+        want_residual=want_residual,
+        use_kernel=kernel_for(cfg, D_t.shape[-1], dev, want_residual),
+        # A residual must come from a dense template (bit-exact output; the
+        # sparse update's envelope is documented for scores only).
+        incremental=cfg.incremental_template and not want_residual)
+    fetched = torch.cat((test[None], history[: x + 1])).cpu().numpy()
+    hist = fetched[1:]
+    out = (fetched[0], hist[-1].copy(), loops, done, x, hist)
+    if want_residual:
+        out = out + (resid.cpu().numpy(),)
+    return out
+
+
+def precompile_for(shape, cfg: CleanConfig, want_residual: bool = False,
+                   device="cuda") -> None:
+    """Run the route ``clean_cube`` will take for a cube of ``shape`` once,
+    on a zero cube on ``device``: that loads (or builds) the kernel library
+    and sets up the cuFFT plan, the cuBLAS handle and the allocator's blocks
+    for these shapes while the host is busy elsewhere.  On a zero cube the
+    loop stops after one iteration (zero template → zero residual → NaN
+    scalers → no flags → the weights repeat).  Mirrors clean_cube's route
+    choices (kernel and incremental template off for a residual)."""
+    dev = torch.device(device)
+    nsub, nchan, nbin = (int(v) for v in shape)
+    D = torch.zeros((nsub, nchan, nbin), dtype=torch.float32, device=dev)
+    w = torch.zeros((nsub, nchan), dtype=torch.float32, device=dev)
+    v = w != 0
+    pr = tuple(cfg.pulse_region)
+    use_kernel = kernel_for(cfg, nbin, dev, want_residual)
+    incremental = cfg.incremental_template and not want_residual
+    if cfg.fused:
+        fused_clean(D, w, v, 5.0, 5.0, max_iter=int(cfg.max_iter), pulse_region=pr,
+                    want_residual=want_residual, use_kernel=use_kernel,
+                    incremental=incremental)
+    elif incremental:
+        t = build_template(D, w)
+        step_from_template(D, w, v, t, 5.0, 5.0, pulse_region=pr, use_kernel=use_kernel)
+        incremental_template(D, t, w, w)
+    else:
+        clean_step(D, w, v, w, 5.0, 5.0, pulse_region=pr, use_kernel=use_kernel)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def start_precompile(shape, cfg: CleanConfig, want_residual: bool = False,
+                     device="cuda") -> threading.Thread | None:
+    """Start :func:`precompile_for` on a daemon thread, to overlap the
+    host's preprocessing; returns the thread to join before the first
+    device call, or None when there is nothing to warm: not the torch
+    backend, not a CUDA device that exists, ``ICT_NO_PRECOMPILE=1``, or an
+    explicit ``chunk_block``.  Inside the thread it also skips the chunked
+    route and a cube whose doubled working set would not fit (the dummy
+    cube would crowd out the real one).  A failure is kept on the thread's
+    ``error`` and not raised: the real call repeats the work and raises
+    there.  The thread's ``launches`` is the kernel launches its dummy run
+    made (the counter's movement while it ran; the caller makes none until
+    it joins).  The warm-up never changes the device or the route."""
+    if (cfg.backend != "torch" or os.environ.get("ICT_NO_PRECOMPILE") == "1"
+            or cfg.chunk_block):
+        return None
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+
+    def _run() -> None:
+        from iterative_cleaner_tpu_torch.parallel.autoshard import (
+            HBM_USABLE_FRACTION,
+            chunk_block_subints,
+            clean_working_set_bytes,
+            device_memory_bytes,
+        )
+
+        try:
+            if cfg.auto_shard and chunk_block_subints(shape, cfg, dev, want_residual):
+                return  # the chunked route: nothing cube-sized to warm
+            hbm = device_memory_bytes(dev)
+            use_kernel = resolve_use_kernel(cfg, int(shape[-1]), dev, want_residual)
+            if hbm is not None and (2 * clean_working_set_bytes(shape, cfg, use_kernel)
+                                    > hbm * HBM_USABLE_FRACTION):
+                return
+            before = fused_fit_moments.launches
+            precompile_for(shape, cfg, want_residual, dev)
+            th.launches = fused_fit_moments.launches - before
+        except Exception as exc:  # noqa: BLE001 — warm-up only; the real call raises
+            th.error = exc
+
+    th = threading.Thread(target=_run, daemon=True, name="ict-precompile")
+    th.error = None
+    th.launches = 0
+    th.start()
+    return th

@@ -3,7 +3,8 @@
 Port of ``iterative_cleaner_tpu/cli.py``: the reference flag surface
 (``-c -s -m -r -o -p -u -q -l --memory --bad_chan --bad_subint``) plus
 ``--backend {numpy,torch}`` (default torch), ``--device`` (default cuda),
-``--kernel/--no_kernel``, ``--audit``, ``--dump_masks`` and ``--report``.
+``--kernel/--no_kernel``, ``--fused``, ``--chunk_block``, ``--no_auto_shard``,
+``--no_incremental_template``, ``--audit``, ``--dump_masks`` and ``--report``.
 ``-z`` and the JAX package's other extensions are not yet ported.
 
 Run as ``python -m iterative_cleaner_tpu_torch`` or ``ict-clean-torch``.
@@ -74,6 +75,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "shape fits and no residual is requested)")
     p.add_argument("--no_kernel", action="store_const", const=False, dest="kernel",
                    help="use the plain PyTorch route instead of the kernel")
+    p.add_argument("--fused", action="store_true",
+                   help="torch: run the whole iteration loop on the device, "
+                        "one host read per iteration (per-loop progress is "
+                        "derived afterwards from the on-device mask history)")
+    p.add_argument("--no_auto_shard", action="store_true",
+                   help="torch: never stream an oversized cube through the "
+                        "device (default: a cube whose working set exceeds "
+                        "the card's memory is cleaned in subint blocks)")
+    p.add_argument("--chunk_block", type=int, default=0, metavar="N",
+                   help="torch: force the single-device streaming backend with "
+                        "N-subint blocks, regardless of the device-memory "
+                        "estimate (0 = automatic; the escape hatch when the "
+                        "working-set estimate or reported memory is off)")
+    p.add_argument("--no_incremental_template", action="store_true",
+                   help="torch: rebuild the template densely every iteration "
+                        "instead of carrying it across iterations and updating "
+                        "it from the flipped profiles (the incremental update "
+                        "saves one full cube read per iteration after the "
+                        "first; masks are identical across both routes)")
     p.add_argument("--audit", action="store_true",
                    help="after each archive, replay it through the numpy "
                         "oracle and compare the final masks")
@@ -101,6 +121,10 @@ def config_from_args(args: argparse.Namespace) -> CleanConfig:
         no_log=args.no_log,
         backend=args.backend,
         kernel=args.kernel,
+        fused=args.fused,
+        auto_shard=not args.no_auto_shard,
+        chunk_block=args.chunk_block,
+        incremental_template=not args.no_incremental_template,
         dump_masks=args.dump_masks,
         audit=args.audit,
     )

@@ -8,9 +8,9 @@ with the port's differences:
 - the tri-state ``pallas`` becomes ``kernel``: None = auto (the hand-written
   CUDA kernel wherever it can run, see ``ops/fused_kernels.resolve_use_kernel``),
   True = forced on, False = the plain PyTorch route;
-- ``fused``, ``sharded_batch``, ``chunk_block``, ``stream``, ``x64``,
-  ``print_zap`` and ``resume`` keep their fields (so a JAX config maps
-  across field for field) but are rejected when set: not yet ported.
+- ``sharded_batch``, ``stream``, ``x64``, ``print_zap`` and ``resume`` keep
+  their fields (so a JAX config maps across field for field) but are
+  rejected when set: not yet ported.
 
 Note on ``pulse_region``: the reference's help text claims the order is
 ``(pulse_start, pulse_end, scaling_factor)`` but the code reads
@@ -25,8 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 
 #: Options whose routes exist only in the JAX package so far.
-NOT_YET_PORTED = ("fused", "sharded_batch", "chunk_block", "stream", "x64",
-                  "print_zap", "resume")
+NOT_YET_PORTED = ("sharded_batch", "stream", "x64", "print_zap", "resume")
 
 
 def pulse_region_active(pulse_region) -> bool:
@@ -78,11 +77,13 @@ class CleanConfig:
 
     # --- port extensions ---
     backend: str = "numpy"         # {'numpy', 'torch'}
-    fused: bool = False            # not yet ported
+    fused: bool = False            # torch: the whole loop on the device, one host read per iteration
     kernel: bool | None = None     # None = auto, True = forced, False = plain route
     x64: bool = False              # not yet ported
     sharded_batch: bool = False    # not yet ported
-    chunk_block: int = 0           # not yet ported
+    auto_shard: bool = True        # stream a cube through the device when it exceeds device memory
+    chunk_block: int = 0           # force the single-device streaming backend
+                                   # with this subint block size (0 = automatic)
     incremental_template: bool = True  # carry the template across iterations
     stream: bool = False           # not yet ported
     resume: bool = False           # not yet ported
@@ -101,8 +102,12 @@ class CleanConfig:
                 raise ValueError(
                     f"{name} is not yet ported to the PyTorch package; use "
                     f"iterative_cleaner_tpu for it")
+        if self.fused and self.backend != "torch":
+            raise ValueError("fused=True requires backend='torch'")
         if self.chunk_block < 0:
             raise ValueError(f"chunk_block must be >= 0, got {self.chunk_block}")
+        if self.chunk_block and self.backend != "torch":
+            raise ValueError("chunk_block requires backend='torch'")
         if self.kernel and self.backend != "torch":
             raise ValueError("kernel=True requires backend='torch'")
         if self.kernel and self.unload_res:

@@ -17,10 +17,8 @@ from iterative_cleaner_tpu_torch.backends.torch_backend import to_device
 from iterative_cleaner_tpu_torch.config import CleanConfig
 
 # JAX-config fields with no counterpart, and the value under which dropping
-# them changes nothing: auto_shard only matters for cubes beyond one
-# device's memory (no such route here yet), trace_dir names a jax.profiler
-# capture.
-_DROPPED = {"auto_shard": True, "trace_dir": ""}
+# them changes nothing: trace_dir names a jax.profiler capture.
+_DROPPED = {"trace_dir": ""}
 
 
 def config_from_jax(fields: dict) -> CleanConfig:

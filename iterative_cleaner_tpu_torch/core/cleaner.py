@@ -2,8 +2,9 @@
 
 Copies of ``IterationInfo``, ``CleanResult``, ``LoopState`` and
 ``find_bad_parts`` (``iterative_cleaner_tpu/core/cleaner.py:31-196``,
-``:458-477``) and a port of ``clean_cube`` (``:199-455``) for the stepwise
-route.  The reference's iteration dynamics:
+``:458-477``) and a port of ``clean_cube`` (``:199-455``) with its routing:
+in memory (stepwise or fused) or, for a cube beyond the card's memory, the
+chunked streaming backend.  The reference's iteration dynamics:
 
 - weights feed back only through the template: each step's stats use the
   frozen original weights, while ``w_prev`` shapes the template;
@@ -17,6 +18,7 @@ carried over; observability is a later slice.
 
 from __future__ import annotations
 
+import sys
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -76,6 +78,17 @@ class StepTimer:
         return dt
 
 
+def termination_reason(converged: bool, history) -> str:
+    """Why a loop stopped, from its mask history: the final mask repeated
+    the previous one (``fixed_point``), an older one (``cycle``), or none
+    (``max_iter``)."""
+    if not converged:
+        return "max_iter"
+    if len(history) >= 2 and np.array_equal(history[-1], history[-2]):
+        return "fixed_point"
+    return "cycle"
+
+
 @dataclass
 class LoopState:
     """Resumable state of the convergence loop: the weight history (cycle
@@ -111,18 +124,14 @@ class LoopState:
         if progress is not None:
             progress(info)
 
-        # Full-history cycle detection, pre-loop weights included; a match
-        # against the previous mask is a fixed point, anything older a
-        # genuine oscillation.
-        fixed = np.array_equal(new_w, self.history[-1])
-        stop = fixed or any(
-            np.array_equal(new_w, old) for old in self.history[:-1])
+        # Full-history cycle detection, pre-loop weights included.
+        stop = any(np.array_equal(new_w, old) for old in self.history)
         self.history.append(new_w)
         self.w_prev = new_w
         if stop:
             self.loops = x
             self.converged = True
-            self.termination = "fixed_point" if fixed else "cycle"
+            self.termination = termination_reason(True, self.history)
         return stop
 
     def run(self, backend, max_iter: int,
@@ -134,7 +143,7 @@ class LoopState:
                 break
         if not self.converged:
             self.loops = max_iter
-            self.termination = "max_iter"
+            self.termination = termination_reason(False, self.history)
 
     def result(self, residual: np.ndarray | None = None,
                timed: bool = False) -> CleanResult:
@@ -206,15 +215,69 @@ def clean_cube(
     dedispersed.  w0: (nsub, nchan) float32 original weights.  ``device``
     is where the torch backend runs (default the card; raises when there is
     none); the numpy oracle ignores it.
+
+    Routing (torch backend): an explicit ``cfg.chunk_block`` streams the
+    cube through the chunked backend in blocks of that many subints;
+    otherwise, with ``cfg.auto_shard``, a cube whose estimated working set
+    exceeds the card's memory streams with the block size
+    ``parallel/autoshard.chunk_block_subints`` gives.  The decision is made
+    here, before the run, and announced on stderr; an out-of-memory error on
+    the in-memory route is never retried elsewhere.  With ``cfg.fused`` the
+    in-memory loop runs on the device and the per-loop ``iterations`` (and
+    ``progress`` calls) are derived afterwards from its mask history, with
+    ``duration_s`` 0.
     """
+    chunk_block, chunk_why = None, ""
     if cfg.backend == "torch":
         _parity_warnings(D, w0)
+        if cfg.chunk_block:
+            # The operator's override: stream whatever the estimate says.
+            chunk_block, chunk_why = int(cfg.chunk_block), "--chunk_block override"
+        elif cfg.auto_shard:
+            from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+            from iterative_cleaner_tpu_torch.parallel.autoshard import chunk_block_subints
+
+            chunk_block = chunk_block_subints(D.shape, cfg, resolve_device(device),
+                                              want_residual)
+            chunk_why = f"cube {tuple(D.shape)} exceeds device memory"
+    if chunk_block is not None:
+        note = " (fused loop runs stepwise on this path)" if cfg.fused else ""
+        print(f"chunked clean: {chunk_why}; streaming {chunk_block}-subint "
+              f"blocks through the device{note}", file=sys.stderr)
     if want_residual:
-        # The kernel never materialises the residual, and a residual must
-        # come from a dense template (bit-exact output; the sparse update's
-        # ulp envelope is documented for scores only).
-        cfg = cfg.replace(kernel=False, incremental_template=False)
-    backend = make_backend(D, w0, cfg, device=device)
+        # The kernel never materialises the residual.  A residual must come
+        # from a dense template (bit-exact output; the sparse update's
+        # envelope is documented for scores only); the chunked route keeps
+        # the incremental template, as its residual() rebuilds densely.
+        cfg = cfg.replace(kernel=False)
+        if chunk_block is None:
+            cfg = cfg.replace(incremental_template=False)
+
+    if cfg.fused and chunk_block is None:
+        from iterative_cleaner_tpu_torch.backends.torch_backend import run_fused
+
+        out = run_fused(D, w0, cfg, want_residual=want_residual, device=device)
+        test, w_final, loops, done, _x, history = out[:6]
+        history = list(history)
+        infos = []
+        for i in range(1, len(history)):
+            info = _iteration_info(i, history[i - 1], history[i])
+            infos.append(info)
+            if progress is not None:
+                progress(info)
+        return CleanResult(
+            weights=w_final, test_results=test, loops=loops, converged=done,
+            iterations=infos, history=history,
+            residual=out[6] if want_residual else None,
+            termination=termination_reason(done, history))
+
+    if chunk_block is not None:
+        from iterative_cleaner_tpu_torch.parallel.chunked import ChunkedTorchCleaner
+
+        backend = ChunkedTorchCleaner(D, w0, cfg, block=chunk_block,
+                                      keep_residual=want_residual, device=device)
+    else:
+        backend = make_backend(D, w0, cfg, device=device)
     state = LoopState.start(w0)
     state.run(backend, cfg.max_iter, progress=progress)
     residual = None

@@ -51,7 +51,9 @@ class ArchiveReport:
     rfi_frac: float = 0.0
     converged: bool = False
     error: str | None = None
-    iteration_s: list[float] = field(default_factory=list)  # host wall-clock per iteration
+    # Host wall-clock per iteration (stepwise routes; the fused loop has no
+    # per-iteration laps, so it leaves this empty rather than reporting zeros).
+    iteration_s: list[float] = field(default_factory=list)
     audit: dict | None = None      # --audit record
 
 

@@ -4,6 +4,11 @@ A copy of ``iterative_cleaner_tpu/io/synthetic.py`` (``RFISpec``,
 ``pulse_profile``, ``make_archive``).  Data synthesis stays numpy-seeded, so
 one seed gives the same bytes in both packages (pinned by
 ``tests/test_torch_clean.py``).
+
+:func:`make_preprocessed_cube` is the port's own: an already preprocessed
+cube made on a device from a ``torch.Generator``, for sizes where
+``make_archive``'s float64 host synthesis and per-channel Python loop would
+take too long (the 1024 x 4096 x 1024 cube of BASELINE.json config #5).
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from iterative_cleaner_tpu_torch.io.base import (
     Archive,
@@ -18,7 +24,11 @@ from iterative_cleaner_tpu_torch.io.base import (
     STATE_INTENSITY,
     STATE_STOKES,
 )
-from iterative_cleaner_tpu_torch.ops.preprocess import dispersion_shifts
+from iterative_cleaner_tpu_torch.ops.preprocess import (
+    BASELINE_FRAC,
+    baseline_window,
+    dispersion_shifts,
+)
 
 
 @dataclass(frozen=True)
@@ -116,3 +126,50 @@ def make_archive(
         dedispersed=not dispersed,
         filename=f"synthetic_seed{seed}",
     )
+
+
+def make_preprocessed_cube(nsub: int, nchan: int, nbin: int, seed: int = 0,
+                           snr: float = 25.0, rfi: RFISpec | None = _DEFAULT_RFI,
+                           device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """A seeded (D, w0) pair on ``device``, as ``preprocess`` would leave
+    it: float32 Gaussian noise plus the pulse of :func:`pulse_profile`
+    (already dedispersed, so in phase across channels) under a smooth
+    bandpass, the injections of ``rfi`` (spikes, DC profiles, bad channels,
+    bad subints, pre-zapped profiles), and each profile's off-pulse mean
+    removed with the window ``preprocess`` uses.  Everything is drawn from
+    one ``torch.Generator`` seeded with ``seed``; one seed gives one cube
+    on a given device type."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randint(high, n):
+        return torch.randint(int(high), (int(n),), generator=gen, device=dev)
+
+    D = torch.randn((nsub, nchan, nbin), generator=gen, device=dev)
+    prof = torch.from_numpy(pulse_profile(nbin)).to(dev, torch.float32)
+    gains = 1.0 + 0.3 * torch.sin(torch.linspace(0, 3.1, nchan, device=dev))
+    amp = snr / max(float(np.sqrt(pulse_profile(nbin).sum())), 1e-9)
+    D += (amp * gains)[:, None] * prof[None, :]
+    w0 = 0.8 + 0.4 * rand(nsub, nchan)
+    if rfi is not None:
+        a = rfi.amplitude
+        n = rfi.n_profile_spikes
+        s, c, b = randint(nsub, n), randint(nchan, n), randint(nbin, n)
+        D[s, c, b] += a * (2.0 + rand(n))
+        s, c = randint(nsub, rfi.n_dc_profiles), randint(nchan, rfi.n_dc_profiles)
+        D[s, c] += 0.4 * a
+        for c in randint(nchan, rfi.n_bad_channels).tolist():
+            D[:, c] += 0.3 * a * torch.randn((nsub, nbin), generator=gen, device=dev)
+        for s in randint(nsub, rfi.n_bad_subints).tolist():
+            D[s] += 0.3 * a * torch.randn((nchan, nbin), generator=gen, device=dev)
+        s, c = randint(nsub, rfi.n_prezapped), randint(nchan, rfi.n_prezapped)
+        w0[s, c] = 0.0
+    total = torch.matmul(w0.reshape(-1), D.reshape(-1, nbin))
+    start, width = baseline_window(total.double().cpu().numpy(), BASELINE_FRAC)
+    idx = (start + torch.arange(width, device=dev)) % nbin
+    D -= D.index_select(-1, idx).mean(dim=-1, keepdim=True)
+    return D, w0

@@ -2,9 +2,11 @@
 
 Port of ``iterative_cleaner_tpu/models/surgical.py:24-134``: preprocessing,
 the iterative loop, the bad-parts sweep, the output policy and the residual
-archive.  The JAX package's precompile warm-up has no counterpart (PyTorch
-compiles nothing ahead).  ``--audit`` replays the same preprocessed inputs
-through the port's copy of the numpy oracle and compares the final masks.
+archive.  While the host preprocesses, a warm-up thread
+(``backends/torch_backend.start_precompile``) loads the kernel library and
+runs one dummy step of the route on a zero cube of the real shape.
+``--audit`` replays the same preprocessed inputs through the port's copy of
+the numpy oracle and compares the final masks.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def run_audit(D, w0, cfg: CleanConfig, weights_served, scores_served=None) -> di
     """Replay the clean through the numpy oracle and compare the final
     masks (and, given ``scores_served``, the last iteration's scores:
     relative drift above |score| = 1, absolute below)."""
-    res_np = clean_cube(D, w0, cfg.replace(backend="numpy", kernel=None, audit=False))
+    res_np = clean_cube(D, w0, cfg.replace(backend="numpy", kernel=None, fused=False,
+                                           chunk_block=0, audit=False))
     oracle_w, _, _ = finalize_weights(res_np.weights, cfg)
     n_diffs = int(np.sum(np.asarray(weights_served) != oracle_w))
     record = {"mask_identical": n_diffs == 0, "n_mask_diffs": n_diffs,
@@ -94,7 +97,17 @@ class SurgicalCleaner:
 
     def clean(self, archive: Archive, progress: ProgressFn | None = None) -> SurgicalOutput:
         cfg = self.cfg
+        # The preprocessed cube's shape is known from the header alone, so
+        # the card's set-up overlaps the host preprocessing.
+        from iterative_cleaner_tpu_torch.backends.torch_backend import start_precompile
+
+        shape = (archive.data.shape[0], archive.data.shape[2], archive.data.shape[3])
+        warm = start_precompile(shape, cfg, want_residual=cfg.unload_res,
+                                device=self.device)
         D, w0 = preprocess(archive)
+        if warm is not None:
+            # A warm-up still running must not race the real call.
+            warm.join()
         result = clean_cube(D, w0, cfg, progress=progress,
                             want_residual=cfg.unload_res, device=self.device)
         final_w, n_bs, n_bc = finalize_weights(result.weights, cfg)

@@ -35,14 +35,32 @@ MA_FILL = 1e20
 
 
 def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:
-    """``x / d`` as an IEEE division on every device (see module note)."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    """``x / d`` as an IEEE division on every device (see module note).
+    The divisor is made on the device by a fill, not copied from the host,
+    so the call never waits for the device."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+#: Elements per cuFFT call of the FFT diagnostic (2^25 float32, 128 MiB).
+#: The transform's complex output, its workspace and the magnitudes scale
+#: with the batch; taken over a whole cube they cost ~2.5 cubes of device
+#: memory at the peak, so a cube is transformed in subint pieces of at most
+#: this many elements.
+FFT_PIECE_ELEMENTS = 1 << 25
 
 
 def fft_diagnostic(centred: torch.Tensor) -> torch.Tensor:
     """max |rfft| over the bin axis of the centred residuals — the
-    mask-blind diagnostic #4."""
-    return torch.fft.rfft(centred, dim=-1).abs().amax(dim=-1)
+    mask-blind diagnostic #4 — in pieces of leading-axis rows of at most
+    FFT_PIECE_ELEMENTS elements."""
+    n = centred.shape[0] if centred.dim() > 1 else 1
+    step = max(1, FFT_PIECE_ELEMENTS // max(1, centred.numel() // max(n, 1)))
+    if n <= step:
+        return torch.fft.rfft(centred, dim=-1).abs().amax(dim=-1)
+    out = torch.empty(centred.shape[:-1], dtype=centred.dtype, device=centred.device)
+    for lo in range(0, n, step):
+        out[lo:lo + step] = torch.fft.rfft(centred[lo:lo + step], dim=-1).abs().amax(dim=-1)
+    return out
 
 
 def fill_moments(mean, std, ptp, valid):

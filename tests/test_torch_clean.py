@@ -265,11 +265,21 @@ class TestCLI:
         assert reports[0].error is None and reports[0].loops >= 1
         assert reports[1].error and reports[1].out_path is None
 
-    @pytest.mark.parametrize("flag", ["--fused", "-z", "--x64", "--sharded_batch",
-                                      "--resume"])
+    @pytest.mark.parametrize("flag", ["-z", "--x64", "--sharded_batch", "--resume"])
     def test_unported_flags_rejected(self, flag):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(["a.npz", flag])
+
+    @pytest.mark.parametrize("argv,field,value", [
+        (["--fused"], "fused", True), (["--chunk_block", "4"], "chunk_block", 4),
+        (["--no_auto_shard"], "auto_shard", False),
+        (["--no_incremental_template"], "incremental_template", False)])
+    def test_ported_flags_parse(self, argv, field, value):
+        args = cli.build_parser().parse_args(["a.npz", *argv])
+        cfg = cli.config_from_args(args)
+        assert getattr(cfg, field) == value
+        assert getattr(cli.config_from_args(cli.build_parser().parse_args(["a.npz"])),
+                       field) != value
 
     def test_naming(self):
         ar = make_archive(seed=0)
@@ -293,13 +303,24 @@ class TestConfigAndState:
                                   incremental_template=False)
 
     @pytest.mark.parametrize("field,value", [
-        ("fused", True), ("x64", True), ("sharded_batch", True), ("chunk_block", 8),
-        ("auto_shard", False), ("trace_dir", "t"), ("print_zap", True), ("resume", True)])
+        ("x64", True), ("sharded_batch", True), ("trace_dir", "t"), ("print_zap", True),
+        ("resume", True)])
     def test_unported_options_raise(self, field, value):
         fields = dataclasses.asdict(JaxConfig(backend="jax"))
         fields[field] = value
         with pytest.raises(ValueError, match="not yet ported"):
             config_from_jax(fields)
+
+    @pytest.mark.parametrize("field,value", [("fused", True), ("chunk_block", 3),
+                                             ("auto_shard", False)])
+    def test_ported_options_map_across_and_run(self, field, value):
+        jc = JaxConfig(backend="jax", **{field: value})
+        cfg = config_from_jax(dataclasses.asdict(jc))
+        assert getattr(cfg, field) == value and cfg.backend == "torch"
+        D, w0 = _cube(8, 64, 256, 42)
+        port = clean_cube(D, w0, cfg, device="cpu")
+        _same_clean(port, jax_clean_cube(D, w0, jc))
+        _same_clean(port, jax_clean_cube(D, w0, JaxConfig(backend="numpy")))
 
     def test_stream_rejected(self):
         with pytest.raises(ValueError, match="stream is not yet ported"):
