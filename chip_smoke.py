@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py      # needs one CUDA card; about 270 s on an H100
+    python3 chip_smoke.py      # needs one CUDA card; about 6 minutes on an H100
 
 Phases, in order, each with its seconds; any failure raises and the script
 exits non-zero:
@@ -13,8 +13,11 @@ exits non-zero:
    on the card, at the main path's shape (256 x 1024 x 1024, BASELINE.json
    config #2), at the chunked route's block (32 x 1024 x 1024) and at ragged
    small shapes, with fills, a pulse region, a zero template and pre-zapped
-   profiles; times the kernel, its plain version and the least time the
-   card could take (bytes or operations over its published peak);
+   profiles; the launch over a leading archive axis (a template per
+   archive) at ragged shapes and at 8 x 256 x 1024 x 1024, each archive
+   bit-identical to the 3-D launch on it alone; times the kernel (single and
+   batched), its plain version and the least time the card could take
+   (bytes or operations over its published peak);
 4. main path — writes the seed-42 synthetic 256 x 1024 x 1024 archive,
    cleans it through ``iterative_cleaner_tpu_torch.cli.main`` with the
    defaults (torch backend, cuda, auto kernel, incremental template, the
@@ -43,7 +46,19 @@ exits non-zero:
    workspace lives;
 9. warm-up — iteration 1 of a clean in a fresh process, without and with
    the warm-up thread first;
-10. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+10. batch — (a) ``sharded_clean`` over 8 LOFAR cubes in host memory
+   (phase 4's, and 7 made with other seeds and RFI loads) in one dispatch:
+   each archive's mask, loops and converged equal ``run_fused`` on it alone
+   (dense template), archive 0's the oracle's, one launch per batch
+   iteration, at most one host sync per iteration, the peak under the
+   batched estimate, wall-clock beside the 8 single walls; the same bucket
+   on a 9 GB ``ICT_HBM_BYTES`` budget in dispatches of 3, each under the
+   budget; (b) ``cli.main`` with ``--sharded_batch``, ``--stream`` and
+   ``--resume`` on four 32 x 1024 x 1024 archives, one 16 x 1024 x 1024 and
+   a missing path (``nsub`` cut for the NPZ writer, the cut printed):
+   rc 1, oracle-identical masks, clean.log lines, skips, launches per
+   bucket;
+11. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the kernel over the
    whole cube (4.3e9 elements) against its plain version on slabs at its
@@ -52,7 +67,7 @@ exits non-zero:
    which routes it chunked), each with its peak device memory held against
    the estimate or the budget, wall-clock and per-iteration times; masks
    identical;
-11. one JSON line of the kernels (launches per path), then
+12. one JSON line of the kernels (launches per path), then
    ``{"ok": true, "device": ...}`` last.
 
 Imports nothing of JAX or of the JAX package.
@@ -68,6 +83,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth and
 # float32 outside the tensor cores.
@@ -237,23 +253,15 @@ def phase_kernel_parity():
     valid = w0 != 0
     kernel_ms = _time_ms(lambda: fk.fused_fit_moments(D, t, w0, valid), runs=20)
     plain_ms = _time_ms(lambda: fk.fused_fit_moments_plain(D, t, w0, valid), runs=10)
-    n, p, nbin = D.numel(), w0.numel(), LOFAR[2]
-    # Each input read once, each output written once: D and centred (4 B per
-    # element each), w0 + the three maps (4 B per profile each), valid (1 B
-    # per profile), the template and bin scale, <t,t>.
-    bytes_moved = 8 * n + 16 * p + p + 8 * nbin + 4
-    # Per element: tp (mul, add), wr (mul, sub, mul, mul), sum/max/min,
-    # centre, square and add: 12 f32 operations.
-    ops = 12 * n
-    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by, bytes_moved = _kernel_bound_ms(1, LOFAR)
     log(f"fused_fit_moments at {LOFAR}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB; "
         f"{bytes_moved / (kernel_ms * 1e-3) / 1e12:.3f} TB/s achieved); "
         f"max_abs_err={max_err:.3e}")
     del D, t, w0, valid
     torch.cuda.empty_cache()
+    batched = _batched_kernel_parity(gen)
+    max_err = max(max_err, batched["max_abs_err"])
     return {
         "name": "fused_fit_moments",
         "route": "cuda",
@@ -265,9 +273,116 @@ def phase_kernel_parity():
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
+        "batched": batched,
     }
+
+
+def _kernel_bound_ms(narch: int, shape) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, bytes) of one launch over ``narch`` archives of
+    ``shape``: each input read once, each output written once — D and the
+    centred cube (4 B per element each), w0 and the three maps (4 B per
+    profile each), valid (1 B per profile), a template per archive, the bin
+    scale and a <t,t> per archive — against 12 f32 operations per element
+    (tp: mul, add; wr: mul, sub, mul, mul; sum, max, min; centre, square,
+    add)."""
+    nsub, nchan, nbin = shape
+    n, p = narch * nsub * nchan * nbin, narch * nsub * nchan
+    bytes_moved = 8 * n + 16 * p + p + 4 * narch * nbin + 4 * nbin + 4 * narch
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 12 * n / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_moved
+
+
+def _same_bits(a, b) -> bool:
+    """Bit-identical, NaN payloads included."""
+    import torch
+
+    return a.shape == b.shape and bool((a.view(torch.int32) == b.view(torch.int32)).all())
+
+
+def _batched_kernel_parity(gen) -> dict:
+    """The launch over a leading archive axis: each archive's outputs
+    bit-identical to the 3-D launch on that archive alone, and within the
+    phase-3 tolerances of the plain version; at small ragged shapes with a
+    template per archive (one of them zero), then timed at 8 LOFAR cubes."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops.template import build_templates
+
+    region = (0.25, 40.0, 90.0)
+    cases = [
+        ("3x5x33x100, valid", 3, (5, 33, 100), True, (0.0, 0.0, 1.0)),
+        ("4x8x64x257, raw maps, pre-zapped 20%", 4, (8, 64, 257), False, (0.0, 0.0, 1.0)),
+        ("2x8x128x96, valid, pulse region", 2, (8, 128, 96), True, region),
+        ("2x16x32x4096, valid", 2, (16, 32, 4096), True, (0.0, 0.0, 1.0)),
+        ("3x32x1024x1024 (the CLI batch's shape), valid", 3, (32, 1024, 1024), True,
+         (0.0, 0.0, 1.0)),
+    ]
+    tol = {"centred": (1e-5, 1e-5), "mean": (1e-5, 1e-6),
+           "std": (1e-5, 1e-6), "ptp": (1e-5, 1e-5)}
+    max_err = 0.0
+    for name, narch, shape, with_valid, pr in cases:
+        prezap = 0.2 if "pre-zapped" in name else 0.01
+        parts = [_inputs(shape, gen, prezap=prezap) for _ in range(narch)]
+        Db = torch.stack([d for d, _, _ in parts])
+        wb = torch.stack([w for _, _, w in parts])
+        tb = build_templates(Db, wb)
+        tb[-1] = 0.0                      # the zero-template rule, per archive
+        vb = (wb != 0) if with_valid else None
+        del parts
+        before = fk.fused_fit_moments.launches
+        got = fk.fused_fit_moments(Db, tb, wb, vb, pulse_region=pr)
+        torch.cuda.synchronize()
+        check(fk.fused_fit_moments.launches == before + 1, f"{name}: not one launch")
+        want = fk.fused_fit_moments_plain(Db, tb, wb, vb, pulse_region=pr)
+        for key, g, w in zip(("centred", "mean", "std", "ptp"), got, want):
+            rtol, atol = tol[key]
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol, equal_nan=True,
+                                       msg=lambda m, k=key, n=name: f"batched {n}: {k}: {m}")
+            fin = torch.isfinite(w)
+            if fin.any():
+                max_err = max(max_err, float((g[fin] - w[fin]).abs().max()))
+        for j in range(narch):
+            one = fk.fused_fit_moments(Db[j], tb[j], wb[j], None if vb is None else vb[j],
+                                       pulse_region=pr)
+            for key, g, w in zip(("centred", "mean", "std", "ptp"), got, one):
+                check(_same_bits(g[j], w),
+                      f"batched {name}: archive {j} {key} differs from its 3-D launch")
+        log(f"  batched {name}: ok (bit-identical to the 3-D launches per archive)")
+        del Db, wb, tb, vb, got, want
+    torch.cuda.empty_cache()
+
+    # Timing at the batch phase's shape: 8 LOFAR cubes, one launch.
+    narch = 8
+    Db = torch.randn((narch, *LOFAR), generator=gen, device="cuda")
+    wb = 0.8 + 0.4 * torch.rand((narch, *LOFAR[:2]), generator=gen, device="cuda")
+    tb = build_templates(Db, wb)
+    vb = wb != 0
+    kernel_ms = _time_ms(lambda: fk.fused_fit_moments(Db, tb, wb, vb), runs=10)
+    plain_ms = _time_ms(lambda: fk.fused_fit_moments_plain(Db, tb, wb, vb), runs=5)
+    got = fk.fused_fit_moments(Db, tb, wb, vb)
+    for j in (0, narch - 1):
+        one = fk.fused_fit_moments(Db[j], tb[j], wb[j], vb[j])
+        for key, g, w in zip(("centred", "mean", "std", "ptp"), got, one):
+            check(_same_bits(g[j], w), f"batched 8 x LOFAR: archive {j} {key} differs")
+        del one
+    want = fk.fused_fit_moments_plain(Db[-1], tb[-1], wb[-1], vb[-1])
+    for key, g, w in zip(("centred", "mean", "std", "ptp"), got, want):
+        rtol, atol = tol[key]
+        torch.testing.assert_close(g[-1], w, rtol=rtol, atol=atol, equal_nan=True)
+        max_err = max(max_err, float((g[-1] - w).abs().max()))
+    bound_ms, bound_by, bytes_moved = _kernel_bound_ms(narch, LOFAR)
+    log(f"fused_fit_moments batched at {narch} x {LOFAR} (one launch): kernel_ms={kernel_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB, "
+        f"{bytes_moved / (kernel_ms * 1e-3) / 1e12:.3f} TB/s achieved); archives 0 and "
+        f"{narch - 1} bit-identical to their 3-D launches; max_abs_err={max_err:.3e}")
+    del Db, wb, tb, vb, got, want
+    torch.cuda.empty_cache()
+    return {"shape": [narch, *LOFAR], "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err}
 
 
 def phase_main_path(entry):
@@ -800,6 +915,295 @@ def phase_warmup(lofar) -> None:
         f"{lofar['iteration_s'][0]:.4f}s)")
 
 
+#: Archives 1-7 of the batch phase (archive 0 is phase 4's seed-42 cube):
+#: (seed, RFISpec fields or None for an archive without RFI), made already
+#: preprocessed on the card; distinct seeds and RFI loads, so the archives
+#: stop at different iterations.
+BATCH_ARCHIVES = (
+    (101, {}),
+    (102, {"n_profile_spikes": 64, "n_dc_profiles": 32, "n_bad_channels": 4,
+           "n_bad_subints": 2, "n_prezapped": 16}),
+    (103, None),
+    (104, {"n_profile_spikes": 256, "n_dc_profiles": 192, "n_bad_channels": 8,
+           "n_bad_subints": 4, "n_prezapped": 128}),
+    (105, {"n_bad_channels": 16, "amplitude": 10.0}),
+    (106, {"n_profile_spikes": 16, "amplitude": 8.0}),
+    (107, {"n_dc_profiles": 64, "n_bad_subints": 8, "amplitude": 20.0}),
+)
+#: ICT_HBM_BYTES of the batch phase's budgeted run: 9 GB, so that about 3
+#: LOFAR archives fit one dispatch.
+BATCH_BUDGET = 9 * 10**9
+
+
+def _batch_cubes(lofar):
+    """The batch phase's 8 LOFAR cubes in host memory (archive 0 is phase
+    4's preprocessed seed-42 cube)."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.io.synthetic import RFISpec, make_preprocessed_cube
+
+    cubes, w0s = [lofar["D"]], [lofar["w0"]]
+    for seed, spec in BATCH_ARCHIVES:
+        Dt, wt = make_preprocessed_cube(*LOFAR, seed=seed,
+                                        rfi=None if spec is None else RFISpec(**spec),
+                                        device="cuda")
+        cubes.append(Dt.cpu().numpy())
+        w0s.append(wt.cpu().numpy())
+        del Dt, wt
+    torch.cuda.empty_cache()
+    return cubes, w0s
+
+
+def _batch_library(lofar) -> dict:
+    """sharded_clean over 8 LOFAR cubes in one dispatch, each archive held
+    against run_fused on it alone (dense template); then the same bucket on
+    a budget that cuts it into several dispatches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch.backends.torch_backend import run_fused
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.parallel import autoshard, batch, sharded
+    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    cubes, w0s = _batch_cubes(lofar)
+    n = len(cubes)
+    log(f"batch: {n} archives of {LOFAR} ({sum(c.nbytes for c in cubes) / 1e9:.2f} GB of cubes "
+        f"in host memory), archives 1-{n - 1} made in {time.perf_counter() - t0:.1f}s")
+    cfg = CleanConfig(backend="torch")
+    mesh = make_mesh()
+
+    singles, walls = [], []
+    one_cfg = cfg.replace(fused=True, incremental_template=False)
+    for D, w0 in zip(cubes, w0s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles.append(run_fused(D, w0, one_cfg))    # (test, w, loops, done, x, history)
+        walls.append(time.perf_counter() - t0)
+    xs = [r[4] for r in singles]
+    log("  alone (run_fused, dense template): loops " + str([r[2] for r in singles])
+        + f", iterations {xs}, zapped " + str([int((r[1] == 0).sum()) for r in singles])
+        + ", walls " + ", ".join(f"{w:.4f}" for w in walls) + " s")
+    check(len(set(xs)) > 1, f"every archive stopped at iteration {xs[0]}: the batch's "
+          "freeze rule for an archive that stopped first would go untested")
+
+    k = autoshard.archives_per_dispatch(LOFAR, cfg, "cuda")
+    est = autoshard.batch_working_set_bytes(LOFAR, cfg, True, n)
+    check(k is not None and k >= n, f"{n} LOFAR archives do not fit one dispatch (k={k})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fk.fused_fit_moments.launches = 0
+    t0 = time.perf_counter()
+    test_b, w_b, loops_b, done_b = sharded.sharded_clean(cubes, w0s, cfg, mesh)
+    wall = time.perf_counter() - t0
+    launches = fk.fused_fit_moments.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    score_diff = 0.0
+    for j, (t1, w1, l1, d1, _x1, _h1) in enumerate(singles):
+        check(np.array_equal(w_b[j], w1), f"batch archive {j}: mask differs from run_fused")
+        check((int(loops_b[j]), bool(done_b[j])) == (l1, d1),
+              f"batch archive {j}: loops/converged differ from run_fused")
+        check(np.array_equal(np.isnan(test_b[j]), np.isnan(t1)),
+              f"batch archive {j}: NaN scores differ")
+        fin = ~np.isnan(t1)
+        score_diff = max(score_diff, float(np.abs(test_b[j][fin] - t1[fin]).max()))
+    check(np.array_equal(w_b[0], lofar["oracle"].weights), "batch archive 0: mask != oracle")
+    check(launches == max(xs), f"batch launches {launches} != the batch's iterations {max(xs)} "
+          f"(not {n} archives x iterations)")
+    check(peak <= est, f"batch peak {peak} B exceeds the batched estimate {est} B")
+    log(f"  batch (sharded_clean, one dispatch of {n}; {k} would fit this card): masks, loops "
+        f"and converged identical to each alone, archive 0's to the oracle; max |score "
+        f"difference| {score_diff:.3e}; launches {launches} = iterations {max(xs)}")
+    log(f"  batch wall {wall:.4f}s with the upload, against {sum(walls):.4f}s for the {n} "
+        f"single run_fused; peak_device_mem {peak / 1e9:.2f} GB against the batched "
+        f"estimate {est / 1e9:.2f} GB")
+
+    # The loop on the batch already on the card, with its final fetch.
+    Dt, wt = sharded.shard_batch(cubes, w0s, mesh)
+    vt = wt != 0
+
+    def loop_and_fetch():
+        out = sharded.batched_fused_clean(Dt, wt, vt, 5.0, 5.0, max_iter=int(cfg.max_iter),
+                                          pulse_region=tuple(cfg.pulse_region),
+                                          use_kernel=True)
+        torch.cat((out[0].reshape(-1), out[1].reshape(-1))).cpu()
+
+    loop_and_fetch()
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(loop_and_fetch)
+    dev_s = time.perf_counter() - t0
+    log(f"  batched_fused_clean on the device-resident batch: {dev_s:.4f}s, host syncs "
+        f"{len(syncs)} {syncs}")
+    check(len(syncs) <= max(xs) + 1, f"{len(syncs)} host syncs in {max(xs)} iterations + the "
+          f"final fetch: {syncs}")
+    del Dt, wt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The same bucket on a budget: several dispatches, each under it.
+    saved = os.environ.get("ICT_HBM_BYTES")
+    os.environ["ICT_HBM_BYTES"] = str(BATCH_BUDGET)
+    peaks = []
+    real = batch.sharded_clean
+
+    def measured(Db, w0b, *args, **kwargs):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        b0 = torch.cuda.memory_allocated()
+        out = real(Db, w0b, *args, **kwargs)
+        peaks.append((len(Db), torch.cuda.max_memory_allocated() - b0))
+        return out
+
+    batch.sharded_clean = measured
+    try:
+        kb = autoshard.archives_per_dispatch(LOFAR, cfg, "cuda")
+        items = [batch.BatchItem(path=f"archive {j}") for j in range(n)]
+        fk.fused_fit_moments.launches = 0
+        t0 = time.perf_counter()
+        batch._finish_bucket(items, list(range(n)), list(cubes), list(w0s), cfg, mesh)
+        wall_b = time.perf_counter() - t0
+        launches_b = fk.fused_fit_moments.launches
+    finally:
+        batch.sharded_clean = real
+        if saved is None:
+            os.environ.pop("ICT_HBM_BYTES", None)
+        else:
+            os.environ["ICT_HBM_BYTES"] = saved
+    sizes = [m for m, _ in peaks]
+    want_sizes = [min(kb, n - lo) for lo in range(0, n, max(kb, 1))]
+    check(0 < kb < n and sizes == want_sizes,
+          f"budget {BATCH_BUDGET}: {kb} per dispatch, dispatches {sizes}")
+    for it, (_t1, w1, l1, d1, _x1, _h1) in zip(items, singles):
+        check(it.error is None and np.array_equal(it.weights, w1)
+              and (it.loops, it.converged) == (l1, d1),
+              f"budgeted batch {it.path}: mask/loops/converged differ from run_fused")
+    usable = BATCH_BUDGET * autoshard.HBM_USABLE_FRACTION
+    for m, pk in peaks:
+        check(pk <= usable and pk <= autoshard.batch_working_set_bytes(LOFAR, cfg, True, m),
+              f"budgeted dispatch of {m}: peak {pk} B over the {usable:.0f} B usable budget "
+              "or its estimate")
+    want_launches = sum(max(xs[lo:lo + kb]) for lo in range(0, n, kb))
+    check(launches_b == want_launches,
+          f"budgeted launches {launches_b} != {want_launches} (per dispatch, its iterations)")
+    log(f"  on a {BATCH_BUDGET / 1e9:.0f} GB budget (ICT_HBM_BYTES): {kb} archives per "
+        f"dispatch, dispatches {sizes}, peaks "
+        + ", ".join(f"{pk / 1e9:.2f}" for _, pk in peaks)
+        + f" GB against {usable / 1e9:.2f} GB usable; masks identical; launches {launches_b}; "
+        f"wall {wall_b:.4f}s")
+    del cubes, w0s, singles, items, test_b, w_b
+    gc.collect()
+    return {"batch": launches, "batch_budget": launches_b}
+
+
+def _batch_cli() -> dict:
+    """cli.main with --sharded_batch, then --stream, then --resume, on 4
+    archives of 32 x 1024 x 1024, one of 16 x 1024 x 1024 and a missing
+    path."""
+    import numpy as np
+
+    from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.io.npz import NpzIO
+    from iterative_cleaner_tpu_torch.io.synthetic import make_archive
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+    from iterative_cleaner_tpu_torch.parallel import batch
+
+    nchan, nbin = LOFAR[1:]
+    log(f"CLI batch: nsub cut from {LOFAR[0]} to 32 (and 16 for a second bucket): the NPZ "
+        f"zlib writer runs at about 48 s per GB on this host; channels and bins stay at "
+        f"full width ({nchan} x {nbin})")
+    specs = [(32, 201), (32, 202), (32, 203), (32, 204), (16, 205)]
+    cwd = os.getcwd()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="ict_batch_cli_") as tmp:
+        def prepare(spec):
+            nsub, seed = spec
+            ar = make_archive(nsub=nsub, nchan=nchan, nbin=nbin, seed=seed)
+            path = os.path.join(tmp, f"b{seed}.npz")
+            NpzIO().save(ar, path)
+            return path, clean_cube(*preprocess(ar), CleanConfig(backend="numpy"))
+
+        # One thread per archive: zlib and most of numpy release the GIL.
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(specs)) as pool:
+            made = list(pool.map(prepare, specs))
+        paths = [p for p, _ in made]
+        oracle = dict(made)
+        del made
+        log(f"  wrote {len(paths)} archives and ran the oracle on each in "
+            f"{time.perf_counter() - t0:.1f}s ({len(specs)} threads); oracle loops "
+            + str([oracle[p].loops for p in paths]))
+        missing = os.path.join(tmp, "missing.npz")
+        argv = paths[:2] + [missing] + paths[2:]
+        bucket_a, bucket_b = paths[:4], paths[4:]
+
+        def iterations(group):
+            # An archive's iterations are its loops (a loop that never
+            # converges runs max_iter and reports it).
+            return max(oracle[p].loops for p in group) if group else 0
+
+        os.chdir(tmp)
+        try:
+            for name, flags, todo in (("cli_sharded_batch", [], paths),
+                                      ("cli_stream", ["--stream"], paths),
+                                      ("cli_resume", ["--resume"], [paths[1]])):
+                for p in todo:
+                    if os.path.exists(p + "_cleaned.npz"):
+                        os.remove(p + "_cleaned.npz")
+                report = os.path.join(tmp, f"{name}.json")
+                fk.fused_fit_moments.launches = 0
+                t0 = time.perf_counter()
+                with _stderr_to(io.StringIO()) as err, \
+                        _recording(batch, "clean_directory_streaming") as streamed:
+                    rc = cli.main([*argv, "-q", "--sharded_batch", *flags, "--report", report])
+                wall = time.perf_counter() - t0
+                n = fk.fused_fit_moments.launches
+                reps = {r["path"]: r for r in json.load(open(report))}
+                check(rc == 1, f"CLI {name}: rc {rc}, want 1 (the missing path)")
+                check(reps[missing]["error"] and "ERROR cleaning" in err.getvalue(),
+                      f"CLI {name}: the missing path was not reported")
+                for p in paths:
+                    r = reps[p]
+                    check(r["error"] is None, f"CLI {name}: {p} failed: {r['error']}")
+                    check(r["skipped"] == (p not in todo), f"CLI {name}: {p} skipped flag")
+                    served = NpzIO().load(p + "_cleaned.npz").weights
+                    check(np.array_equal(served, oracle[p].weights),
+                          f"CLI {name}: {p} mask != oracle")
+                    if p in todo:
+                        check(r["loops"] == oracle[p].loops, f"CLI {name}: {p} loops")
+                want = (iterations([p for p in bucket_a if p in todo])
+                        + iterations([p for p in bucket_b if p in todo]))
+                check(n == want, f"CLI {name}: launches {n} != {want} (per bucket, its "
+                      "iterations)")
+                check(bool(streamed) == (name == "cli_stream"),
+                      f"CLI {name}: streaming dispatcher used: {bool(streamed)}")
+                lines = open(os.path.join(tmp, "clean.log")).read().count(": Cleaned ")
+                log(f"CLI --sharded_batch {' '.join(flags)}: rc={rc} wall={wall:.2f}s "
+                    f"cleaned {len(todo)}, launches {n}, clean.log lines {lines}; masks = "
+                    "oracle, the missing path isolated")
+                launches[name] = n
+            check(lines == 2 * len(paths) + 1, f"clean.log has {lines} lines")
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def phase_batch(lofar) -> dict:
+    """The directory batch: the library at LOFAR width, then the CLI."""
+    launches = _batch_library(lofar)
+    launches.update(_batch_cli())
+    return launches
+
+
 def _host_available_bytes() -> int:
     with open("/proc/meminfo") as fh:
         for line in fh:
@@ -994,6 +1398,7 @@ def main() -> int:
     by_path.update(timed("CLI routes", phase_cli_routes))
     timed("peak model", phase_peak_model, lofar)
     timed("warm-up", phase_warmup, lofar)
+    by_path.update(timed("batch", phase_batch, lofar))
     del lofar
     by_path.update(timed("north star", phase_north_star, entry))
     entry["launches_by_path"] = by_path

@@ -13,6 +13,8 @@ Layer map (module names mirror the JAX package's):
   core loop           .core.cleaner                     (backend-agnostic)
   backends            .backends.numpy_backend (oracle)  (executable spec)
                       .backends.torch_backend           (device, stepwise)
+  parallel            .parallel.chunked, .autoshard     (cubes beyond the card)
+                      .parallel.batch, .sharded, .mesh  (directory batch, one card)
   ops                 .ops.template, .masked, .stats    (torch ops)
                       .ops.fused_kernels + csrc/*.cu    (hand-written CUDA)
                       .ops.preprocess                   (host, numpy)

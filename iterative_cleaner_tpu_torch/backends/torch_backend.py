@@ -79,7 +79,10 @@ def step_from_template(D, w0, valid, template, chanthresh, subintthresh, *,
                        pulse_region, use_kernel=False):
     """Fit/subtract/stats/zap given a built template.  Returns
     (test, new_w, resid); resid is None on the kernel route, which never
-    materialises it."""
+    materialises it.  Batched tensors — D (a, nsub, nchan, nbin), one
+    template per archive (a, nbin), maps (a, nsub, nchan) — are the
+    directory batch's step (``parallel/sharded.py``): one kernel launch
+    over all archives, every other op archive by archive."""
     if use_kernel:
         # valid passed in: the kernel emits filled, scaler-ready maps.
         centred, d_mean, d_std, d_ptp = fused_fit_moments(

@@ -4,8 +4,10 @@ Port of ``iterative_cleaner_tpu/cli.py``: the reference flag surface
 (``-c -s -m -r -o -p -u -q -l --memory --bad_chan --bad_subint``) plus
 ``--backend {numpy,torch}`` (default torch), ``--device`` (default cuda),
 ``--kernel/--no_kernel``, ``--fused``, ``--chunk_block``, ``--no_auto_shard``,
-``--no_incremental_template``, ``--audit``, ``--dump_masks`` and ``--report``.
-``-z`` and the JAX package's other extensions are not yet ported.
+``--no_incremental_template``, ``--sharded_batch``, ``--stream``,
+``--resume``, ``--audit``, ``--dump_masks`` and ``--report``.  ``-z`` and
+the JAX package's other extensions are not yet ported.  The exit code is 1
+when any archive failed.
 
 Run as ``python -m iterative_cleaner_tpu_torch`` or ``ict-clean-torch``.
 """
@@ -94,6 +96,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "it from the flipped profiles (the incremental update "
                         "saves one full cube read per iteration after the "
                         "first; masks are identical across both routes)")
+    p.add_argument("--sharded_batch", action="store_true",
+                   help="torch: clean same-shape archives together on the card, "
+                        "one kernel launch per iteration over all of them (a "
+                        "bucket larger than the card's memory goes in several "
+                        "dispatches)")
+    p.add_argument("--resume", action="store_true",
+                   help="skip archives whose cleaned output already exists "
+                        "(rerun an interrupted batch; default naming mode only)")
+    p.add_argument("--stream", action="store_true",
+                   help="with --sharded_batch: the bounded-host-residency batch "
+                        "loader — dispatch each same-shape bucket as soon as its "
+                        "archives are decoded, overlapping host I/O with device "
+                        "compute (default: load the whole directory first, "
+                        "unless it is larger than a quarter of host memory)")
     p.add_argument("--audit", action="store_true",
                    help="after each archive, replay it through the numpy "
                         "oracle and compare the final masks")
@@ -125,6 +141,9 @@ def config_from_args(args: argparse.Namespace) -> CleanConfig:
         auto_shard=not args.no_auto_shard,
         chunk_block=args.chunk_block,
         incremental_template=not args.no_incremental_template,
+        sharded_batch=args.sharded_batch,
+        stream=args.stream,
+        resume=args.resume,
         dump_masks=args.dump_masks,
         audit=args.audit,
     )

@@ -8,9 +8,12 @@ with the port's differences:
 - the tri-state ``pallas`` becomes ``kernel``: None = auto (the hand-written
   CUDA kernel wherever it can run, see ``ops/fused_kernels.resolve_use_kernel``),
   True = forced on, False = the plain PyTorch route;
-- ``sharded_batch``, ``stream``, ``x64``, ``print_zap`` and ``resume`` keep
-  their fields (so a JAX config maps across field for field) but are
-  rejected when set: not yet ported.
+- ``sharded_batch`` (the directory batch on one card) requires the torch
+  backend and may take the kernel: with no mesh to split the batch over,
+  the JAX package's reason to keep its Pallas kernel off the batch does not
+  apply;
+- ``x64`` and ``print_zap`` keep their fields (so a JAX config maps across
+  field for field) but are rejected when set: not yet ported.
 
 Note on ``pulse_region``: the reference's help text claims the order is
 ``(pulse_start, pulse_end, scaling_factor)`` but the code reads
@@ -25,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 
 #: Options whose routes exist only in the JAX package so far.
-NOT_YET_PORTED = ("sharded_batch", "stream", "x64", "print_zap", "resume")
+NOT_YET_PORTED = ("x64", "print_zap")
 
 
 def pulse_region_active(pulse_region) -> bool:
@@ -80,13 +83,13 @@ class CleanConfig:
     fused: bool = False            # torch: the whole loop on the device, one host read per iteration
     kernel: bool | None = None     # None = auto, True = forced, False = plain route
     x64: bool = False              # not yet ported
-    sharded_batch: bool = False    # not yet ported
+    sharded_batch: bool = False    # clean same-shape archives together, one launch per iteration
     auto_shard: bool = True        # stream a cube through the device when it exceeds device memory
     chunk_block: int = 0           # force the single-device streaming backend
                                    # with this subint block size (0 = automatic)
     incremental_template: bool = True  # carry the template across iterations
-    stream: bool = False           # not yet ported
-    resume: bool = False           # not yet ported
+    stream: bool = False           # sharded_batch: dispatch buckets as loads complete
+    resume: bool = False           # skip archives whose cleaned output exists
     dump_masks: bool = False       # save the mask history next to the output
     audit: bool = False            # compare the final mask with the numpy oracle
 
@@ -110,6 +113,15 @@ class CleanConfig:
             raise ValueError("chunk_block requires backend='torch'")
         if self.kernel and self.backend != "torch":
             raise ValueError("kernel=True requires backend='torch'")
+        if self.sharded_batch and self.backend != "torch":
+            raise ValueError("sharded_batch=True requires backend='torch'")
+        if self.chunk_block and self.sharded_batch:
+            # The batch never routes through the single-cube chunked
+            # backend; rejecting beats silently ignoring the flag.
+            raise ValueError("chunk_block is not supported with "
+                             "sharded_batch=True; drop one of them")
+        if self.stream and not self.sharded_batch:
+            raise ValueError("stream=True only applies to sharded_batch=True")
         if self.kernel and self.unload_res:
             # The kernel never materialises the residual cube.
             raise ValueError("kernel=True cannot produce the residual "

@@ -10,6 +10,13 @@
 //   std  = sqrt(sum(c*c)/nbin);  ptp = max(wr) - min(wr)
 //   with `valid`: mean, std -> 0 and ptp -> 1e20 where !valid (numpy.ma fills)
 //
+// One launch covers `narch` same-shape archives (the directory batch, the
+// leading grid axis the JAX package gets from jax.vmap of the pallas_call):
+// blockIdx.y is the archive, blockIdx.x a block of its profiles, so the 4
+// profiles of a block share one archive's template and <t,t>.  The
+// per-profile arithmetic does not depend on the archive count, so each
+// archive's outputs are bit-identical to a launch over that archive alone.
+//
 // What bounds it on an H100: device-memory bytes.  It reads D once and
 // writes `centred` once (8 bytes per element) plus 4 (nsub, nchan) maps;
 // about 12 floating-point operations per element is far below the card's
@@ -72,20 +79,23 @@ fused_fit_moments_kernel(const float* __restrict__ D,
                          float* __restrict__ ptp_out,
                          long long nprof, int nbin) {
   extern __shared__ float smem[];
-  float* s_t = smem;                 // template, shared by the block
+  float* s_t = smem;                 // this archive's template, shared by the block
   float* s_bs = smem + nbin;         // pulse-region bin scale
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* row = smem + (size_t)(2 + warp) * nbin;  // this warp's profile
+  const long long arch = blockIdx.y;               // nprof profiles per archive
 
+  const float* t_arch = tmpl + arch * (long long)nbin;
   for (int b = threadIdx.x; b < nbin; b += blockDim.x) {
-    s_t[b] = tmpl[b];
+    s_t[b] = t_arch[b];
     s_bs[b] = bin_scale[b];
   }
   __syncthreads();
 
-  const long long prof = (long long)blockIdx.x * kWarps + warp;
-  if (prof >= nprof) return;         // no barrier follows
+  const long long local = (long long)blockIdx.x * kWarps + warp;
+  if (local >= nprof) return;        // no barrier follows
+  const long long prof = arch * nprof + local;   // 64-bit: a*nsub*nchan*nbin passes 2^31
   const float* p = D + prof * (long long)nbin;
 
   // Pass 1: stage the profile, <t,p>.  Each lane only ever touches bins
@@ -97,7 +107,7 @@ fused_fit_moments_kernel(const float* __restrict__ D,
     tp += v * s_t[b];
   }
   tp = warp_sum(tp);
-  const float tt = *tt_ptr;
+  const float tt = tt_ptr[arch];
   const bool ok = (tt != 0.f) && isfinite(tt);
   const float amp = ok ? tp / tt : 1.f;
   const float w = w0[prof];
@@ -151,13 +161,15 @@ extern "C" {
 
 int fused_fit_moments_warps() { return kWarps; }
 
-// Launches on `stream`, allocates nothing, does not synchronise.  Returns
-// the cudaError_t of the attribute call or of the launch (0 = success).
+// Launches on `stream` over `narch` archives of `nprof` profiles each (D is
+// (narch, nprof, nbin), tmpl (narch, nbin), tt (narch,), the maps
+// (narch, nprof)); allocates nothing, does not synchronise.  Returns the
+// cudaError_t of the attribute call or of the launch (0 = success).
 int fused_fit_moments_launch(const float* D, const float* tmpl,
                              const float* bin_scale, const float* w0,
                              const unsigned char* valid, const float* tt,
                              float* centred, float* mean, float* std_,
-                             float* ptp, long long nprof, int nbin,
+                             float* ptp, long long nprof, int nbin, int narch,
                              void* stream) {
   const long long smem = smem_bytes(nbin);
   cudaError_t err = cudaFuncSetAttribute(
@@ -165,7 +177,8 @@ int fused_fit_moments_launch(const float* D, const float* tmpl,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (nprof + kWarps - 1) / kWarps;
-  fused_fit_moments_kernel<<<(unsigned)blocks, kWarps * 32, (size_t)smem,
+  const dim3 grid((unsigned)blocks, (unsigned)narch);
+  fused_fit_moments_kernel<<<grid, kWarps * 32, (size_t)smem,
                              (cudaStream_t)stream>>>(
       D, tmpl, bin_scale, w0, valid, tt, centred, mean, std_, ptp, nprof, nbin);
   return (int)cudaGetLastError();

@@ -1,10 +1,12 @@
 """Per-archive driver: load → clean → side outputs → save.
 
-Port of ``iterative_cleaner_tpu/driver.py:23-288`` and ``:529-577``: output
+Port of ``iterative_cleaner_tpu/driver.py:23-420`` and ``:529-577``: output
 naming, the residual archive, the mask dump, the append-only clean.log, the
-reference's console strings (docs/PARITY.md), per-archive failure isolation
-and a one-archive read-ahead for sequential batches.  Sweep, follow, the
-sharded batch and streaming are not yet ported.
+reference's console strings (docs/PARITY.md), per-archive failure isolation,
+a one-archive read-ahead for sequential batches, ``--resume``, and the
+directory batch (``--sharded_batch``, ``--stream``, on one card) with its
+automatic switch to the streaming dispatcher above a host-memory threshold.
+Sweep, follow and the multi-host split are not yet ported.
 """
 
 from __future__ import annotations
@@ -51,10 +53,44 @@ class ArchiveReport:
     rfi_frac: float = 0.0
     converged: bool = False
     error: str | None = None
-    # Host wall-clock per iteration (stepwise routes; the fused loop has no
-    # per-iteration laps, so it leaves this empty rather than reporting zeros).
+    skipped: bool = False          # --resume: output already existed
+    # Host wall-clock per iteration (stepwise routes; the fused loop and the
+    # batch have no per-iteration laps, so they leave this empty rather than
+    # reporting zeros).
     iteration_s: list[float] = field(default_factory=list)
     audit: dict | None = None      # --audit record
+
+
+def split_resumable(paths: list[str], cfg: CleanConfig):
+    """--resume: only the archives whose cleaned output is not on disk yet
+    are processed.  Returns (todo_paths, skipped) with ``skipped`` keyed by
+    the archive's index in the original list, so reports come back in
+    invocation order.  Only the default naming mode has a path-derivable
+    output name; with ``-o`` everything runs (and a warning says so)."""
+    if not cfg.resume:
+        return paths, {}
+    if cfg.output != "":
+        print("warning: --resume only skips archives in the default naming "
+              "mode (-o was given); cleaning everything", file=sys.stderr)
+        return paths, {}
+    todo, skipped = [], {}
+    for k, path in enumerate(paths):
+        o_name = output_name(cfg, None, path)
+        if os.path.exists(o_name):
+            skipped[k] = ArchiveReport(path=path, out_path=o_name, skipped=True)
+            if not cfg.quiet:
+                print(f"Resume: {o_name} exists, skipping {path}")
+        else:
+            todo.append(path)
+    return todo, skipped
+
+
+def _merge_reports(n: int, skipped: dict[int, ArchiveReport],
+                   done: list[ArchiveReport]) -> list[ArchiveReport]:
+    """Reports in invocation order: skipped ones back at their original
+    indices, processed ones filling the gaps in sequence."""
+    it = iter(done)
+    return [skipped[k] if k in skipped else next(it) for k in range(n)]
 
 
 def atomic_save(io, archive: Archive, o_name: str) -> None:
@@ -161,11 +197,129 @@ def write_report(reports: list[ArchiveReport], path: str) -> None:
     os.replace(tmp, path)
 
 
+#: Fraction of host RAM the all-at-once batch loader may plausibly fill
+#: before the driver switches to the streaming dispatcher by itself.  The
+#: estimate is the batch's on-disk size — compressed NPZ underestimates the
+#: decoded cubes, so the fraction is conservative.
+STREAM_RAM_FRACTION = 0.25
+
+
+def _host_ram_bytes() -> int:
+    try:
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    except (ValueError, OSError):
+        return 0
+
+
+def _stream_threshold_bytes() -> int:
+    """On-disk batch size above which --sharded_batch streams by default;
+    0 disables the switch.  ICT_STREAM_THRESHOLD_BYTES overrides."""
+    env = os.environ.get("ICT_STREAM_THRESHOLD_BYTES")
+    if env is not None:
+        try:
+            return int(float(env))
+        except ValueError:
+            print(f"warning: ignoring unparseable ICT_STREAM_THRESHOLD_BYTES"
+                  f"={env!r} (want a byte count); using the host-RAM default",
+                  file=sys.stderr)
+    return int(_host_ram_bytes() * STREAM_RAM_FRACTION)
+
+
+def _auto_stream(paths: list[str], cfg: CleanConfig) -> bool:
+    """Whether this batch takes the streaming route even without --stream:
+    the all-at-once loader holds every decoded cube on the host while it
+    buckets, which a directory above the threshold cannot afford (masks are
+    identical either way; only emission order and host residency differ)."""
+    if cfg.stream:
+        return True
+    threshold = _stream_threshold_bytes()
+    if threshold <= 0:
+        return False
+    total = 0
+    for p in paths:
+        try:
+            total += os.path.getsize(p)
+        except OSError:
+            continue  # missing files fail per-archive later, as always
+    if total > threshold:
+        if not cfg.quiet:
+            print(f"note: batch on-disk size ({total / 1e9:.1f} GB) exceeds the "
+                  f"host-memory threshold ({threshold / 1e9:.1f} GB); using the "
+                  "streaming dispatcher (bounded host residency — pass --stream "
+                  "to silence this note)", file=sys.stderr)
+        return True
+    return False
+
+
+def run_sharded_batch(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
+                      all_paths: list[str] | None = None,
+                      device="cuda") -> list[ArchiveReport]:
+    """Same-shape archives cleaned together on one card (one batched
+    dispatch per bucket, or per ``archives_per_dispatch`` archives of it).
+    No residual archives (the batch does not carry them) and no mask
+    history.  With streaming, each archive's outputs are emitted (and its
+    host arrays released) as its dispatch returns, so host residency stays
+    bounded by the read-ahead window; the all-at-once route emits after the
+    whole batch."""
+    from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+    from iterative_cleaner_tpu_torch.models.surgical import apply_output_policy
+    from iterative_cleaner_tpu_torch.parallel.batch import (
+        clean_directory_batch,
+        clean_directory_streaming,
+    )
+    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+
+    if cfg.unload_res:
+        print("warning: --unload_res is not supported with --sharded_batch; "
+              "residuals will not be written", file=sys.stderr)
+    if cfg.dump_masks:
+        print("warning: --sharded_batch tracks no per-iteration mask history; "
+              "--dump_masks will write the NPZ without the 'history' key",
+              file=sys.stderr)
+    mesh = make_mesh(devices=[resolve_device(device)])
+    invocation = all_paths if all_paths is not None else paths
+    reports: dict[int, ArchiveReport] = {}
+
+    def emit_item(i, item) -> None:
+        if item.error is None:
+            try:
+                cleaned = apply_output_policy(item.archive, item.weights, cfg)
+                reports[i] = emit_outputs(
+                    get_io(item.path), item.archive, item.path, cleaned,
+                    item.test_results, item.loops, item.converged, item.rfi_frac,
+                    cfg, log_dir, invocation)
+                # Release the decoded archive and masks: this is what makes
+                # the streaming route's host-memory bound real.
+                item.archive = item.weights = item.test_results = None
+                return
+            except Exception as exc:  # noqa: BLE001 — isolate, report, continue
+                item.error = str(exc)
+        print(f"ERROR cleaning {item.path}: {item.error}", file=sys.stderr)
+        reports[i] = ArchiveReport(path=item.path, out_path=None, error=item.error)
+
+    if _auto_stream(paths, cfg):
+        items = clean_directory_streaming(paths, cfg, mesh=mesh, on_item=emit_item)
+    else:
+        items = clean_directory_batch(paths, cfg, mesh=mesh)
+    for i, item in enumerate(items):
+        if i not in reports:  # the all-at-once route, and failed loads when streaming
+            emit_item(i, item)
+    return [reports[i] for i in range(len(items))]
+
+
 def run(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
         device="cuda") -> list[ArchiveReport]:
     """Sequential batch with per-archive failure isolation and one-archive
-    read-ahead: a loader thread decodes archive k+1 while archive k cleans."""
+    read-ahead: a loader thread decodes archive k+1 while archive k cleans.
+    ``cfg.resume`` skips archives already cleaned; ``cfg.sharded_batch``
+    hands the rest to :func:`run_sharded_batch`."""
+    # clean.log records the full invocation even when --resume trims it.
     invocation = list(paths)
+    n_total = len(paths)
+    paths, skipped = split_resumable(paths, cfg)
+    if cfg.sharded_batch:
+        return _merge_reports(n_total, skipped, run_sharded_batch(
+            paths, cfg, log_dir=log_dir, all_paths=invocation, device=device))
 
     def load(path: str):
         try:
@@ -190,4 +344,4 @@ def run(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
             reports.append(ArchiveReport(path=path, out_path=None, error=err))
             # Failures are never silenced — -q only gates progress chatter.
             print(f"ERROR cleaning {path}: {err}", file=sys.stderr)
-    return reports
+    return _merge_reports(n_total, skipped, reports)

@@ -6,7 +6,10 @@
 template amplitude, forms the weighted, pulse-region-scaled residual, centres
 it and computes the mean / std / ptp diagnostics — with ``valid`` given, the
 numpy.ma fills too — reading the cube once and writing the centred cube
-once.  On a CUDA tensor it launches the hand-written Hopper kernel in
+once.  A 4-D cube ``(a, nsub, nchan, nbin)`` with one template per archive
+is the directory batch: one launch over all ``a`` archives, the leading
+grid axis the JAX package gets from ``jax.vmap`` of the pallas_call.  On a
+CUDA tensor it launches the hand-written Hopper kernel in
 ``csrc/fused_fit_moments.cu`` (the note there says what bounds it and how
 the design meets that); on a CPU tensor it runs
 :func:`fused_fit_moments_plain`, the same function in plain PyTorch, which
@@ -24,7 +27,12 @@ import torch
 
 from iterative_cleaner_tpu_torch.ops.cuda_build import load_library
 from iterative_cleaner_tpu_torch.ops.stats import fill_moments, moments
-from iterative_cleaner_tpu_torch.ops.template import bin_scale_for, fit_amplitudes
+from iterative_cleaner_tpu_torch.ops.template import (
+    bin_scale_for,
+    broadcast_template,
+    fit_amplitudes,
+    template_norms,
+)
 
 #: Profiles (warps) per block of the CUDA kernel; must match kWarps in the
 #: source (checked when the library loads).
@@ -73,13 +81,19 @@ def resolve_use_kernel(cfg, nbin: int, device, want_residual: bool = False) -> b
     return bool(cfg.kernel)
 
 
+#: Archives one launch can take: the grid's y extent.
+MAX_ARCHIVES = 65535
+
+
 def fused_fit_moments_plain(D, template, w0, valid=None, *,
                             pulse_region=(0.0, 0.0, 1.0)):
     """The kernel's function in plain PyTorch: returns (centred, mean, std,
-    ptp), the maps filled where ``valid`` is False when it is given."""
+    ptp), the maps filled where ``valid`` is False when it is given.  A
+    batch ``D (a, nsub, nchan, nbin)`` takes ``template (a, nbin)`` and maps
+    ``(a, nsub, nchan)``; each archive is computed as it would be alone."""
     amp = fit_amplitudes(D, template)
     bin_scale = bin_scale_for(D.shape[-1], pulse_region, D.device, D.dtype)
-    wr = (amp[..., None] * template - D) * bin_scale * w0[..., None]
+    wr = (amp[..., None] * broadcast_template(template, D) - D) * bin_scale * w0[..., None]
     centred, mean, std, ptp = moments(wr)
     if valid is not None:
         mean, std, ptp = fill_moments(mean, std, ptp, valid)
@@ -87,14 +101,18 @@ def fused_fit_moments_plain(D, template, w0, valid=None, *,
 
 
 def _check_inputs(D, template, w0, valid):
-    if D.dim() != 3:
-        raise ValueError(f"D must be (nsub, nchan, nbin), got shape {tuple(D.shape)}")
-    nsub, nchan, nbin = D.shape
-    want = [("D", D, (nsub, nchan, nbin), torch.float32),
-            ("template", template, (nbin,), torch.float32),
-            ("w0", w0, (nsub, nchan), torch.float32)]
+    """Device, type, shape and contiguity of a 3-D call, or of a 4-D batch
+    with one template per archive; returns ``(nsub, nchan, nbin)``."""
+    if D.dim() not in (3, 4):
+        raise ValueError(f"D must be (nsub, nchan, nbin) or (a, nsub, nchan, nbin), "
+                         f"got shape {tuple(D.shape)}")
+    lead = tuple(D.shape[:-3])
+    nsub, nchan, nbin = D.shape[-3:]
+    want = [("D", D, (*lead, nsub, nchan, nbin), torch.float32),
+            ("template", template, (*lead, nbin), torch.float32),
+            ("w0", w0, (*lead, nsub, nchan), torch.float32)]
     if valid is not None:
-        want.append(("valid", valid, (nsub, nchan), torch.bool))
+        want.append(("valid", valid, (*lead, nsub, nchan), torch.bool))
     for name, t, shape, dtype in want:
         if t.device != D.device:
             raise ValueError(f"{name} is on {t.device}, D on {D.device}")
@@ -104,6 +122,9 @@ def _check_inputs(D, template, w0, valid):
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if lead and lead[0] > MAX_ARCHIVES:
+        raise ValueError(f"{lead[0]} archives in one launch; the grid takes at most "
+                         f"{MAX_ARCHIVES}")
     return nsub, nchan, nbin
 
 
@@ -111,7 +132,8 @@ def _library():
     lib = load_library("fused_fit_moments")
     if not getattr(lib, "_ict_bound", False):
         p = ctypes.c_void_p
-        lib.fused_fit_moments_launch.argtypes = [p] * 10 + [ctypes.c_longlong, ctypes.c_int, p]
+        lib.fused_fit_moments_launch.argtypes = [p] * 10 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
         lib.fused_fit_moments_launch.restype = ctypes.c_int
         lib.fused_fit_moments_error_string.argtypes = [ctypes.c_int]
         lib.fused_fit_moments_error_string.restype = ctypes.c_char_p
@@ -126,27 +148,29 @@ def fused_fit_moments(D, template, w0, valid=None, *, pulse_region=(0.0, 0.0, 1.
     """Fit + subtract + weight + centre + moment diagnostics in one pass.
 
     D: (nsub, nchan, nbin) f32; template: (nbin,) f32; w0: (nsub, nchan) f32;
-    valid: (nsub, nchan) bool or None.  Returns (centred, mean, std, ptp).
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises — there is no fallback.
+    valid: (nsub, nchan) bool or None.  Or the batch: D (a, nsub, nchan,
+    nbin), template (a, nbin), w0 and valid (a, nsub, nchan) — one launch.
+    Returns (centred, mean, std, ptp).  A CPU tensor runs the plain version;
+    a CUDA tensor launches the kernel or raises — there is no fallback.
     """
     if D.device.type == "cpu":
         return fused_fit_moments_plain(D, template, w0, valid, pulse_region=pulse_region)
     if D.device.type != "cuda":
         raise ValueError(f"fused_fit_moments runs on cuda or cpu, not {D.device}")
     nsub, nchan, nbin = _check_inputs(D, template, w0, valid)
+    narch = D.shape[0] if D.dim() == 4 else 1
     ok, why = kernel_route_status(nbin, D.device)
     if not ok:
         raise ValueError(why)
     centred = torch.empty_like(D)
-    mean, std, ptp = (torch.empty((nsub, nchan), dtype=D.dtype, device=D.device)
+    mean, std, ptp = (torch.empty(w0.shape, dtype=D.dtype, device=D.device)
                       for _ in range(3))
     nprof = nsub * nchan
-    if nprof == 0:
+    if nprof == 0 or narch == 0:
         return centred, mean, std, ptp
-    # <t,t> and the bin scale are computed here, once, and read by every
-    # block; <t,t> stays on the device (no host sync).
-    tt = torch.dot(template, template).reshape(1)
+    # <t,t> (one per archive) and the bin scale are computed here, once, and
+    # read by every block; <t,t> stays on the device (no host sync).
+    tt = template_norms(template).reshape(narch)
     bin_scale = bin_scale_for(nbin, pulse_region, D.device, D.dtype)
     lib = _library()
     with torch.cuda.device(D.device):
@@ -155,7 +179,7 @@ def fused_fit_moments(D, template, w0, valid=None, *, pulse_region=(0.0, 0.0, 1.
             D.data_ptr(), template.data_ptr(), bin_scale.data_ptr(), w0.data_ptr(),
             None if valid is None else valid.data_ptr(), tt.data_ptr(),
             centred.data_ptr(), mean.data_ptr(), std.data_ptr(), ptp.data_ptr(),
-            nprof, nbin, stream)
+            nprof, nbin, narch, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_fit_moments launch failed: "

@@ -52,7 +52,17 @@ FFT_PIECE_ELEMENTS = 1 << 25
 def fft_diagnostic(centred: torch.Tensor) -> torch.Tensor:
     """max |rfft| over the bin axis of the centred residuals — the
     mask-blind diagnostic #4 — in pieces of leading-axis rows of at most
-    FFT_PIECE_ELEMENTS elements."""
+    FFT_PIECE_ELEMENTS elements.  A batch ``(a, nsub, nchan, nbin)`` is cut
+    as ``(a*nsub, nchan, nbin)`` rows, each archive into the pieces it
+    would be cut into alone: no piece spans two archives, so the batch runs
+    the single-archive route's cuFFT calls."""
+    if centred.dim() > 3:
+        rows = centred.reshape(-1, *centred.shape[-2:])
+        nsub = centred.shape[-3]
+        out = torch.empty(rows.shape[:-1], dtype=centred.dtype, device=centred.device)
+        for lo in range(0, rows.shape[0], max(nsub, 1)):
+            out[lo:lo + nsub] = fft_diagnostic(rows[lo:lo + nsub])
+        return out.reshape(centred.shape[:-1])
     n = centred.shape[0] if centred.dim() > 1 else 1
     step = max(1, FFT_PIECE_ELEMENTS // max(1, centred.numel() // max(n, 1)))
     if n <= step:
@@ -94,18 +104,19 @@ def diagnostics(weighted: torch.Tensor, valid: torch.Tensor):
 
 
 def _select_medians_via(filled: torch.Tensor, n: torch.Tensor, ax3: int):
-    """Per-row medians of a (4, nsub, nchan) stack along ``ax3``, one sort.
+    """Per-row medians of a (4, [a,] nsub, nchan) stack along ``ax3``, one
+    sort; each line (and each archive of a batch) on its own.
 
     Rows 0-2 carry +inf at invalid positions and use count-based selection
     with even-count averaging (NaN when ``n`` is 0).  Row 3 carries raw
     values and uses np.median semantics: static middle pair, NaN if any NaN
     is in the line."""
     size = filled.shape[ax3]
-    x = torch.movedim(filled, ax3, -1)             # (4, A, size)
+    x = torch.movedim(filled, ax3, -1)             # (4, [a,] A, size)
     srt = sort_prefix(x, size // 2 + 1)
     lo = torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), 0, size - 1)
     hi = torch.clamp(torch.div(n, 2, rounding_mode="floor"), 0, size - 1)
-    idx = torch.stack((lo, hi), dim=-1)[None].expand(3, -1, -1)   # (3, A, 2)
+    idx = torch.stack((lo, hi), dim=-1)[None].expand(3, *lo.shape, 2)  # (3, [a,] A, 2)
     pair = torch.gather(srt[:3], -1, idx)
     nan = torch.full((), float("nan"), dtype=filled.dtype, device=filled.device)
     # The reference sums the pair as a reduction from +0.0, which turns a
@@ -119,11 +130,13 @@ def _select_medians_via(filled: torch.Tensor, n: torch.Tensor, ax3: int):
 
 def _scale_axis(stack4: torch.Tensor, valid: torch.Tensor,
                 axis: int, thresh: float) -> torch.Tensor:
-    """All four diagnostics robust-scaled along 2-D ``axis``: two median
-    selections over the (4, nsub, nchan) stack (values, then absolute
-    deviations)."""
-    ax3 = axis + 1
-    n = valid.sum(dim=axis)
+    """All four diagnostics robust-scaled along ``axis`` of (nsub, nchan)
+    (0: across subints, per channel; 1: across channels, per subint): two
+    median selections over the (4, [a,] nsub, nchan) stack (values, then
+    absolute deviations).  A leading archive axis is a batch: every median
+    stays within its archive."""
+    ax3 = axis - 2          # the reduced axis, counted from the end
+    n = valid.sum(dim=ax3)
     valid3 = valid[None]
     inf = torch.full((), float("inf"), dtype=stack4.dtype, device=stack4.device)
     filled = torch.cat((torch.where(valid3, stack4[:3], inf), stack4[3:]), dim=0)
@@ -143,7 +156,7 @@ def _scale_axis(stack4: torch.Tensor, valid: torch.Tensor,
     scaled_valid = torch.where(mad_ok.unsqueeze(ax3), scaled_ok, abs_r[:3])
     has_b = has[None].unsqueeze(ax3)
     type_a = torch.where(valid3 & has_b, scaled_valid, stack4[:3].abs())
-    type_b = true_divide((r[3] / madB.unsqueeze(ax3 - 1)).abs(), thresh)
+    type_b = true_divide((r[3] / madB.unsqueeze(ax3)).abs(), thresh)
     return torch.cat((type_a, type_b[None]), dim=0)
 
 
@@ -151,7 +164,9 @@ def scale_and_combine(d_std, d_mean, d_ptp, d_fft, valid,
                       chanthresh: float, subintthresh: float) -> torch.Tensor:
     """Robust-scale the four diagnostics per channel (across subints,
     / chanthresh) and per subint (across channels, / subintthresh), take the
-    element-wise max (the mask-drop), and median the four rows."""
+    element-wise max (the mask-drop), and median the four rows.  Maps of
+    shape (a, nsub, nchan) are a batch, scaled archive by archive (the
+    vmap of the JAX package's function)."""
     stack4 = torch.stack((d_std, d_mean, d_ptp, d_fft), dim=0)
     per_chan = _scale_axis(stack4, valid, axis=0, thresh=chanthresh)
     per_subint = _scale_axis(stack4, valid, axis=1, thresh=subintthresh)

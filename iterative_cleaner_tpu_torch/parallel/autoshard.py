@@ -21,6 +21,11 @@ for every cube of at least 2^28 elements (1 GiB f32).  A smaller cube's FFT shar
 for one piece), but such a cube is far below any card's memory.
 The multi-device reroute (``maybe_clean_sharded``, ``single_archive_mesh``)
 belongs to a later slice; on one card it declines in the JAX package too.
+
+The directory batch has no JAX counterpart here (the JAX package fits a
+bucket by spreading it over ``dp``): on one card a bucket is cut into
+dispatches of at most :func:`archives_per_dispatch` archives, each sized by
+:func:`batch_working_set_bytes` before it runs.
 """
 
 from __future__ import annotations
@@ -128,3 +133,34 @@ def chunk_block_subints(shape: tuple[int, ...], cfg, device=None,
         return None
     # The chunked route runs the loop stepwise: no device history.
     return block_subints(shape, hbm, use_kernel)
+
+
+def batch_working_set_bytes(shape: tuple[int, ...], cfg, use_kernel: bool,
+                            narch: int) -> int:
+    """Estimated peak device bytes of one batched dispatch of ``narch``
+    archives of ``shape``: ``narch`` times the route's per-archive estimate,
+    plus the batched loop's (narch, max_iter + 1, nsub, nchan) float32 mask
+    history on top."""
+    profiles = 1
+    for dim in shape[:-1]:
+        profiles *= int(dim)
+    per_archive = (working_set_bytes(shape, 4, use_kernel)
+                   + (int(cfg.max_iter) + 1) * profiles * 4)
+    return int(narch) * per_archive
+
+
+def archives_per_dispatch(shape: tuple[int, ...], cfg, device=None) -> int | None:
+    """The most archives of ``shape`` one batched dispatch may take on
+    ``device``: the largest count whose :func:`batch_working_set_bytes`
+    stays within HBM_USABLE_FRACTION of the device's memory (the
+    ``ICT_HBM_BYTES`` override included).  0 when one archive alone does
+    not fit; None where the device reports no limit (the CPU)."""
+    from iterative_cleaner_tpu_torch.ops.fused_kernels import resolve_use_kernel
+
+    dev = torch.device("cuda" if device is None else device)
+    hbm = device_memory_bytes(dev)
+    if hbm is None:
+        return None
+    use_kernel = resolve_use_kernel(cfg, int(shape[-1]), dev)
+    one = batch_working_set_bytes(shape, cfg, use_kernel, 1)
+    return int(hbm * HBM_USABLE_FRACTION // one)

@@ -265,7 +265,7 @@ class TestCLI:
         assert reports[0].error is None and reports[0].loops >= 1
         assert reports[1].error and reports[1].out_path is None
 
-    @pytest.mark.parametrize("flag", ["-z", "--x64", "--sharded_batch", "--resume"])
+    @pytest.mark.parametrize("flag", ["-z", "--x64"])
     def test_unported_flags_rejected(self, flag):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(["a.npz", flag])
@@ -273,7 +273,10 @@ class TestCLI:
     @pytest.mark.parametrize("argv,field,value", [
         (["--fused"], "fused", True), (["--chunk_block", "4"], "chunk_block", 4),
         (["--no_auto_shard"], "auto_shard", False),
-        (["--no_incremental_template"], "incremental_template", False)])
+        (["--no_incremental_template"], "incremental_template", False),
+        (["--sharded_batch"], "sharded_batch", True),
+        (["--sharded_batch", "--stream"], "stream", True),
+        (["--resume"], "resume", True)])
     def test_ported_flags_parse(self, argv, field, value):
         args = cli.build_parser().parse_args(["a.npz", *argv])
         cfg = cli.config_from_args(args)
@@ -303,8 +306,7 @@ class TestConfigAndState:
                                   incremental_template=False)
 
     @pytest.mark.parametrize("field,value", [
-        ("x64", True), ("sharded_batch", True), ("trace_dir", "t"), ("print_zap", True),
-        ("resume", True)])
+        ("x64", True), ("trace_dir", "t"), ("print_zap", True)])
     def test_unported_options_raise(self, field, value):
         fields = dataclasses.asdict(JaxConfig(backend="jax"))
         fields[field] = value
@@ -312,7 +314,8 @@ class TestConfigAndState:
             config_from_jax(fields)
 
     @pytest.mark.parametrize("field,value", [("fused", True), ("chunk_block", 3),
-                                             ("auto_shard", False)])
+                                             ("auto_shard", False), ("sharded_batch", True),
+                                             ("resume", True)])
     def test_ported_options_map_across_and_run(self, field, value):
         jc = JaxConfig(backend="jax", **{field: value})
         cfg = config_from_jax(dataclasses.asdict(jc))
@@ -323,8 +326,21 @@ class TestConfigAndState:
         _same_clean(port, jax_clean_cube(D, w0, JaxConfig(backend="numpy")))
 
     def test_stream_rejected(self):
-        with pytest.raises(ValueError, match="stream is not yet ported"):
+        # stream is a mode of the batch: without sharded_batch it is refused,
+        # as in the JAX package; with it, it maps across.
+        with pytest.raises(ValueError, match="only applies to sharded_batch"):
             CleanConfig(stream=True)
+        jc = JaxConfig(backend="jax", sharded_batch=True, stream=True)
+        assert config_from_jax(dataclasses.asdict(jc)) == CleanConfig(
+            backend="torch", sharded_batch=True, stream=True)
+
+    @pytest.mark.parametrize("kw,match", [
+        ({"backend": "numpy", "sharded_batch": True}, "requires backend='torch'"),
+        ({"backend": "torch", "sharded_batch": True, "chunk_block": 4}, "chunk_block"),
+        ({"backend": "torch", "stream": True}, "only applies to sharded_batch")])
+    def test_batch_option_rules(self, kw, match):
+        with pytest.raises(ValueError, match=match):
+            CleanConfig(**kw)
 
     def test_namespace_repr_shape(self):
         jr = JaxConfig(backend="jax").namespace_repr(["a.npz"])
