@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py      # needs one CUDA card; about 6 minutes on an H100
+    python3 chip_smoke.py      # needs one CUDA card; about 9 minutes on an H100
 
 Phases, in order, each with its seconds; any failure raises and the script
 exits non-zero:
@@ -15,9 +15,10 @@ exits non-zero:
    small shapes, with fills, a pulse region, a zero template and pre-zapped
    profiles; the launch over a leading archive axis (a template per
    archive) at ragged shapes and at 8 x 256 x 1024 x 1024, each archive
-   bit-identical to the 3-D launch on it alone; times the kernel (single and
-   batched), its plain version and the least time the card could take
-   (bytes or operations over its published peak);
+   bit-identical to the 3-D launch on it alone; times the kernel (single,
+   at the online slab 32 x 1024 x 1024 and batched), its plain version and
+   the least time the card could take (bytes or operations over its
+   published peak);
 4. main path — writes the seed-42 synthetic 256 x 1024 x 1024 archive,
    cleans it through ``iterative_cleaner_tpu_torch.cli.main`` with the
    defaults (torch backend, cuda, auto kernel, incremental template, the
@@ -58,7 +59,25 @@ exits non-zero:
    a missing path (``nsub`` cut for the NPZ writer, the cut printed):
    rc 1, oracle-identical masks, clean.log lines, skips, launches per
    bucket;
-11. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+11. sweep — ``models/sweep.sweep_thresholds`` on phase 4's cube, a 3 x 3
+   grid (chanthresh, subintthresh in {4, 5, 6}) in one dispatch: every
+   point's mask, loops and converged equal the solo clean with its
+   thresholds, (5, 5) the oracle's, no kernel launch (the plain route, as
+   in the JAX package), the peak under the sizing's estimate, the grid's
+   wall beside the 9 solo walls; the same grid on a 20 GB
+   ``ICT_HBM_BYTES`` budget (dispatches of 2, 2, 2, 2, 1) and on 2 GB
+   (beneath one pair: solo cleans through the chunked cleaner), the same
+   points; ``cli.main --sweep`` on a 32 x 1024 x 1024 archive, its
+   ``_sweep.npz`` equal to the library's points;
+12. follow — ``online.OnlineSession`` on the card fed phase 4's raw archive
+   in 8 blocks of 32 subints: each block's latency (its host share and the
+   uploader's set-up) and kernel launches (slabs x iterations); the alerts
+   identical to the kernel-off session's; a pass that dies rolls back;
+   ``finalize`` identical to the oracle; then ``online.follow_archive`` on
+   a 32 x 1024 x 1024 archive grown in 4 atomic rewrites of 8 subints (4
+   alerts, the oracle's mask) and one ``python -m
+   iterative_cleaner_tpu_torch --follow`` process on the complete file;
+13. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the kernel over the
    whole cube (4.3e9 elements) against its plain version on slabs at its
@@ -67,7 +86,7 @@ exits non-zero:
    which routes it chunked), each with its peak device memory held against
    the estimate or the budget, wall-clock and per-iteration times; masks
    identical;
-12. one JSON line of the kernels (launches per path), then
+14. one JSON line of the kernels (launches per path), then
    ``{"ok": true, "device": ...}`` last.
 
 Imports nothing of JAX or of the JAX package.
@@ -91,6 +110,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 LOFAR = (256, 1024, 1024)     # BASELINE.json config #2: nsub x nchan x nbin
+ONLINE_SLAB = (32, 1024, 1024)  # the follow phase's provisional-pass slab at LOFAR
 NORTH_STAR = (1024, 4096, 1024)  # BASELINE.json config #5
 T_START = time.perf_counter()
 
@@ -138,6 +158,20 @@ def _stderr_to(buf: io.StringIO):
     finally:
         for line in buf.getvalue().splitlines():
             log(f"  stderr: {line}")
+
+
+@contextlib.contextmanager
+def _hbm_budget(nbytes):
+    """``ICT_HBM_BYTES`` set to ``nbytes`` for the ``with`` block."""
+    saved = os.environ.get("ICT_HBM_BYTES")
+    os.environ["ICT_HBM_BYTES"] = str(int(nbytes))
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("ICT_HBM_BYTES", None)
+        else:
+            os.environ["ICT_HBM_BYTES"] = saved
 
 
 def phase_environment():
@@ -260,6 +294,7 @@ def phase_kernel_parity():
         f"max_abs_err={max_err:.3e}")
     del D, t, w0, valid
     torch.cuda.empty_cache()
+    online = _slab_timing(gen, ONLINE_SLAB)
     batched = _batched_kernel_parity(gen)
     max_err = max(max_err, batched["max_abs_err"])
     return {
@@ -276,7 +311,29 @@ def phase_kernel_parity():
         "bound_by": bound_by,
         "library_ms": None,
         "batched": batched,
+        "online_slab": online,
     }
+
+
+def _slab_timing(gen, shape) -> dict:
+    """The kernel and its plain version timed at ``shape`` (the online
+    session's provisional-pass slab), against the bound."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+
+    D, t, w0 = _inputs(shape, gen)
+    valid = w0 != 0
+    kernel_ms = _time_ms(lambda: fk.fused_fit_moments(D, t, w0, valid), runs=50)
+    plain_ms = _time_ms(lambda: fk.fused_fit_moments_plain(D, t, w0, valid), runs=20)
+    bound_ms, bound_by, bytes_moved = _kernel_bound_ms(1, shape)
+    log(f"fused_fit_moments at {shape} (the online slab): kernel_ms={kernel_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB; "
+        f"{bytes_moved / (kernel_ms * 1e-3) / 1e12:.3f} TB/s achieved)")
+    del D, t, w0, valid
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _kernel_bound_ms(narch: int, shape) -> tuple[float, str, float]:
@@ -398,15 +455,31 @@ def phase_main_path(entry):
     from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
     from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
 
+    def references(ar):
+        t0 = time.perf_counter()
+        D, w0 = preprocess(ar)
+        t1 = time.perf_counter()
+        ora = clean_cube(D, w0, CleanConfig(backend="numpy"))
+        return D, w0, ora, t1 - t0, time.perf_counter() - t1
+
     nsub, nchan, nbin = LOFAR
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="ict_smoke_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="ict_smoke_") as tmp, \
+            ThreadPoolExecutor(1) as pool:
         t0 = time.perf_counter()
         ar = make_archive(nsub=nsub, nchan=nchan, nbin=nbin, seed=42)
+        # The host references (preprocessing, the numpy oracle) run on
+        # another core while the single-threaded zlib writer works; both
+        # are done before the CLI starts, so its wall-clock is its own.
+        refs = pool.submit(references, ar)
         path = os.path.join(tmp, "lofar_seed42.npz")
         NpzIO().save(ar, path)
         log(f"wrote {path} ({os.path.getsize(path) / 1e9:.2f} GB) in "
             f"{time.perf_counter() - t0:.1f}s")
+        D, w0, ora, pre_s, ora_s = refs.result()
+        log(f"preprocessed the same archive for the references in {pre_s:.1f}s and ran "
+            f"the numpy oracle at full size {LOFAR} in {ora_s:.1f}s, beside the write: "
+            f"loops={ora.loops}")
 
         report_path = os.path.join(tmp, "report.json")
         os.chdir(tmp)   # clean.log goes to the working directory
@@ -458,12 +531,6 @@ def phase_main_path(entry):
         check(0 < n_zapped < served.size, "implausible zap count")
 
         t0 = time.perf_counter()
-        D, w0 = preprocess(ar)
-        del ar
-        log(f"preprocessed the same archive for the references in "
-            f"{time.perf_counter() - t0:.1f}s")
-
-        t0 = time.perf_counter()
         before = fk.fused_fit_moments.launches
         off = clean_cube(D, w0, CleanConfig(backend="torch", kernel=False), device="cuda")
         log(f"kernel-off route (plain PyTorch on the card): loops={off.loops} "
@@ -474,10 +541,6 @@ def phase_main_path(entry):
 
         layer_times(D, w0, served)
 
-        t0 = time.perf_counter()
-        ora = clean_cube(D, w0, CleanConfig(backend="numpy"))
-        log(f"numpy oracle at full size {LOFAR}: loops={ora.loops} "
-            f"in {time.perf_counter() - t0:.1f}s")
         n_diff = int((ora.weights != served).sum())
         check(n_diff == 0, f"{n_diff} mask entries differ from the numpy oracle")
         check(ora.loops == loops and ora.converged == rep["converged"],
@@ -488,7 +551,8 @@ def phase_main_path(entry):
         log(f"  mask identical to the oracle and the kernel-off route; "
             f"max score drift vs oracle {drift:.3e}")
     entry["launches"] = launches
-    return {"D": D, "w0": w0, "served": served, "history": history, "loops": loops,
+    return {"archive": ar, "D": D, "w0": w0, "served": served, "history": history,
+            "loops": loops,
             "converged": rep["converged"], "iteration_s": iters, "oracle": ora,
             "warm_launches": warm_launches}
 
@@ -1047,8 +1111,6 @@ def _batch_library(lofar) -> dict:
     torch.cuda.empty_cache()
 
     # The same bucket on a budget: several dispatches, each under it.
-    saved = os.environ.get("ICT_HBM_BYTES")
-    os.environ["ICT_HBM_BYTES"] = str(BATCH_BUDGET)
     peaks = []
     real = batch.sharded_clean
 
@@ -1063,19 +1125,16 @@ def _batch_library(lofar) -> dict:
 
     batch.sharded_clean = measured
     try:
-        kb = autoshard.archives_per_dispatch(LOFAR, cfg, "cuda")
-        items = [batch.BatchItem(path=f"archive {j}") for j in range(n)]
-        fk.fused_fit_moments.launches = 0
-        t0 = time.perf_counter()
-        batch._finish_bucket(items, list(range(n)), list(cubes), list(w0s), cfg, mesh)
-        wall_b = time.perf_counter() - t0
-        launches_b = fk.fused_fit_moments.launches
+        with _hbm_budget(BATCH_BUDGET):
+            kb = autoshard.archives_per_dispatch(LOFAR, cfg, "cuda")
+            items = [batch.BatchItem(path=f"archive {j}") for j in range(n)]
+            fk.fused_fit_moments.launches = 0
+            t0 = time.perf_counter()
+            batch._finish_bucket(items, list(range(n)), list(cubes), list(w0s), cfg, mesh)
+            wall_b = time.perf_counter() - t0
+            launches_b = fk.fused_fit_moments.launches
     finally:
         batch.sharded_clean = real
-        if saved is None:
-            os.environ.pop("ICT_HBM_BYTES", None)
-        else:
-            os.environ["ICT_HBM_BYTES"] = saved
     sizes = [m for m, _ in peaks]
     want_sizes = [min(kb, n - lo) for lo in range(0, n, max(kb, 1))]
     check(0 < kb < n and sizes == want_sizes,
@@ -1204,6 +1263,436 @@ def phase_batch(lofar) -> dict:
     return launches
 
 
+#: The sweep phase's grid: chanthresh x subintthresh, channel-major.
+SWEEP_AXIS = (4.0, 5.0, 6.0)
+#: ICT_HBM_BYTES of the sweep's budgeted runs: 20 GB cuts the 9-pair grid
+#: into dispatches of 2 (one pair is ~6.5 GB on the plain route), 2 GB is
+#: beneath one pair and beneath one in-memory clean on the kernel route
+#: (~2.5 GB), so each pair is a solo clean through the chunked cleaner.
+SWEEP_BUDGETS = (20 * 10**9, 2 * 10**9)
+
+
+def _same_points(got, want) -> bool:
+    import numpy as np
+
+    return len(got) == len(want) and all(
+        (p.chanthresh, p.subintthresh, p.loops, p.converged, p.rfi_frac)
+        == (q.chanthresh, q.subintthresh, q.loops, q.converged, q.rfi_frac)
+        and np.array_equal(p.weights, q.weights) for p, q in zip(got, want))
+
+
+def _sweep_library(lofar) -> dict:
+    """The 3 x 3 grid at LOFAR in one dispatch against the solo cleans, then
+    on a budget that chunks it and on one beneath a single pair."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.models import sweep
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.parallel import autoshard, sharded
+
+    D, w0, ora = lofar["D"], lofar["w0"], lofar["oracle"]
+    cfg = CleanConfig(backend="torch")
+    pairs = sweep.grid(SWEEP_AXIS, SWEEP_AXIS)
+    est = autoshard.batch_working_set_bytes(LOFAR, cfg, False, len(pairs))
+    sweep.sweep_thresholds(D, w0, cfg, pairs[:1])   # settles the allocator; not counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fk.fused_fit_moments.launches = 0
+    with _recording(sharded, "batched_fused_clean") as dispatches:
+        t0 = time.perf_counter()
+        points = sweep.sweep_thresholds(D, w0, cfg, pairs)
+        wall = time.perf_counter() - t0
+    launches = fk.fused_fit_moments.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    check(len(dispatches) == 1, f"the grid took {len(dispatches)} dispatches, not one")
+    check(launches == 0, f"the sweep launched the kernel {launches} times (it runs the "
+          "plain route, as the JAX package's vmapped sweep does)")
+    check(peak <= est, f"sweep peak {peak} B exceeds the sizing's {len(pairs)}-pair "
+          f"estimate {est} B")
+    del dispatches
+    log(f"sweep: {len(pairs)} pairs {SWEEP_AXIS} x {SWEEP_AXIS} at {LOFAR} in one dispatch: "
+        f"wall {wall:.4f}s (upload included), peak_device_mem {peak / 1e9:.2f} GB against "
+        f"the estimate {est / 1e9:.2f} GB ({est / len(pairs) / 1e9:.2f} GB per pair), "
+        f"kernel launches {launches}")
+    log("  chanthresh subintthresh: loops converged zapped")
+    for p in points:
+        log(f"  {p.chanthresh:.0f} {p.subintthresh:.0f}: {p.loops} {p.converged} "
+            f"{int((p.weights == 0).sum())}")
+
+    solo_walls = []
+    for p in points:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo = clean_cube(D, w0, cfg.replace(chanthresh=p.chanthresh,
+                                             subintthresh=p.subintthresh), device="cuda")
+        solo_walls.append(time.perf_counter() - t0)
+        check(np.array_equal(p.weights, solo.weights)
+              and (p.loops, p.converged) == (solo.loops, solo.converged)
+              and p.rfi_frac == float((solo.weights == 0).mean()),
+              f"sweep point ({p.chanthresh}, {p.subintthresh}) differs from its solo clean")
+    mid = points[pairs.index((5.0, 5.0))]
+    check(np.array_equal(mid.weights, ora.weights) and mid.loops == ora.loops,
+          "the (5, 5) point differs from the oracle's mask")
+    log(f"  every point's mask, loops and converged equal the solo clean (default route: "
+        f"stepwise, kernel, incremental template); (5, 5) equals the oracle. Grid wall "
+        f"{wall:.4f}s against {sum(solo_walls):.4f}s for the 9 solo cleans ("
+        + ", ".join(f"{w:.4f}" for w in solo_walls) + ")")
+
+    out = {"sweep": launches}
+    for budget in SWEEP_BUDGETS:
+        name = f"sweep_{budget // 10**9}gb"
+        sizes = []
+        real = sharded.batched_fused_clean
+
+        def sized(Db, *args, **kwargs):
+            sizes.append(Db.shape[0])
+            return real(Db, *args, **kwargs)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fk.fused_fit_moments.launches = 0
+        sharded.batched_fused_clean = sized
+        try:
+            with _hbm_budget(budget), _stderr_to(io.StringIO()) as said:
+                t0 = time.perf_counter()
+                got = sweep.sweep_thresholds(D, w0, cfg, pairs)
+                wall_b = time.perf_counter() - t0
+        finally:
+            sharded.batched_fused_clean = real
+        n = fk.fused_fit_moments.launches
+        peak_b = torch.cuda.max_memory_allocated() - base
+        usable = budget * autoshard.HBM_USABLE_FRACTION
+        check(_same_points(got, points), f"{name}: the points differ from the one dispatch")
+        per_pair = autoshard.batch_working_set_bytes(LOFAR, cfg, False, 1)
+        if per_pair <= usable:
+            k = int(usable // per_pair)
+            want = [min(k, len(pairs) - lo) for lo in range(0, len(pairs), k)]
+            check(sizes == want and len(set(sizes)) > 1, f"{name}: dispatches {sizes}, "
+                  f"want {want} (chunks of unequal sizes)")
+            check(f"in chunks of {k}" in said.getvalue(), f"{name}: chunking not announced")
+            check(n == 0 and peak_b <= usable, f"{name}: launches {n}, peak {peak_b} B "
+                  f"against {usable:.0f} B usable")
+            route = f"dispatches {sizes}"
+        else:
+            check(sizes == [] and "even for a single pair" in said.getvalue()
+                  and said.getvalue().count("chunked clean:") == len(pairs),
+                  f"{name}: the solo reroute through the chunked cleaner did not run")
+            check(n > 0 and peak_b <= usable, f"{name}: launches {n}, peak {peak_b} B "
+                  f"against {usable:.0f} B usable")
+            route = "solo cleans through the chunked cleaner"
+        log(f"  on a {budget / 1e9:.0f} GB budget (ICT_HBM_BYTES): {route}, wall {wall_b:.4f}s, "
+            f"peak {peak_b / 1e9:.2f} GB against {usable / 1e9:.2f} GB usable, kernel "
+            f"launches {n}; points identical")
+        out[name] = n
+    del points
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sweep_cli() -> None:
+    """cli.main --sweep 4:4 5:5 6:6 on a 32 x 1024 x 1024 archive: its
+    _sweep.npz equals the library's points."""
+    import numpy as np
+
+    from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.io.npz import NpzIO
+    from iterative_cleaner_tpu_torch.io.synthetic import make_archive
+    from iterative_cleaner_tpu_torch.models import sweep
+    from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+
+    shape = (32, *LOFAR[1:])
+    ar = make_archive(nsub=shape[0], nchan=shape[1], nbin=shape[2], seed=301)
+    pairs = [(4.0, 4.0), (5.0, 5.0), (6.0, 6.0)]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ict_sweep_cli_") as tmp:
+        path = os.path.join(tmp, "s.npz")
+        NpzIO().save(ar, path)
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = cli.main([path, "--sweep", "4:4", "5:5", "6:6"])
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        check(rc == 0, f"cli.main --sweep returned {rc}")
+        lib = sweep.sweep_thresholds(*preprocess(ar), CleanConfig(backend="torch"), pairs)
+        check(sweep.format_table(lib) in out.getvalue(), "the CLI's table != the library's")
+        with np.load(path + "_sweep.npz") as z:
+            check(np.array_equal(z["weights"], np.stack([p.weights for p in lib]))
+                  and z["loops"].tolist() == [p.loops for p in lib]
+                  and z["converged"].tolist() == [p.converged for p in lib],
+                  "the CLI's _sweep.npz != the library's points")
+        check(not os.path.exists(path + "_cleaned.npz")
+              and not os.path.exists(os.path.join(tmp, "clean.log")),
+              "--sweep wrote a cleaned archive or clean.log")
+    log(f"CLI --sweep 4:4 5:5 6:6 on {shape} (nsub cut for the NPZ writer): rc 0, wall "
+        f"{wall:.2f}s, _sweep.npz = the library's points (loops "
+        f"{[p.loops for p in lib]}, zapped {[int((p.weights == 0).sum()) for p in lib]})")
+
+
+def phase_sweep(lofar) -> dict:
+    """The threshold sweep: the library at LOFAR, then the CLI."""
+    launches = _sweep_library(lofar)
+    _sweep_cli()
+    return launches
+
+
+#: The follow phase's blocks: LOFAR's 256 subints in 8 blocks of 32.
+FOLLOW_BLOCK = 32
+
+
+@contextlib.contextmanager
+def _init_times(module, name: str):
+    """Replace the class ``module.<name>`` for the ``with`` block by a
+    subclass whose constructor records its wall-clock; yields that list."""
+    orig = getattr(module, name)
+    times = []
+
+    class Timed(orig):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            times.append(time.perf_counter() - t0)
+
+    setattr(module, name, Timed)
+    try:
+        yield times
+    finally:
+        setattr(module, name, orig)
+
+
+def _alert_key(alert) -> dict:
+    d = alert.to_dict()
+    d.pop("latency_s")
+    return d
+
+
+#: The block of the kernel-off session whose first submission dies in its
+#: pass (the rollback check); it is then resubmitted.
+ROLLBACK_BLOCK = 3
+
+
+def _check_rollback(sess, data, weights) -> None:
+    """A pass that dies leaves ``nsub``, ``prov_w`` and the block count as
+    they were; the caller then resubmits the block."""
+    import numpy as np
+
+    nsub, prov, blocks = sess.state.nsub, sess.state.prov_w.copy(), sess.blocks_ingested
+
+    class Dying:
+        def step(self, w_prev):
+            raise RuntimeError("a pass that dies")
+
+    sess._backend = lambda D, w0: Dying()
+    try:
+        sess.ingest(data, weights)
+        check(False, "the dying pass did not raise")
+    except RuntimeError as exc:
+        check("dies" in str(exc), f"unexpected error {exc!r}")
+    finally:
+        del sess._backend
+    check(sess.state.nsub == nsub and np.array_equal(sess.state.prov_w, prov)
+          and sess.blocks_ingested == blocks, "a failed pass did not roll the append back")
+    log(f"  rollback: a pass that died left nsub={nsub}, prov_w and the block count as "
+        "they were; the block is resubmitted")
+
+
+def _follow_library(lofar) -> dict:
+    """OnlineSession on the card at LOFAR, 8 blocks of 32 subints: per-block
+    latency and launches, alerts identical to the kernel-off session,
+    finalize identical to the oracle, rollback of a failing pass."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.online import OnlineSession, SessionMeta
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.parallel import chunked
+
+    ar, ora = lofar["archive"], lofar["oracle"]
+    nblocks = ar.nsub // FOLLOW_BLOCK
+    meta = SessionMeta.from_archive(ar)
+    sess = OnlineSession(meta, CleanConfig(backend="torch"), alert_iters=2, device="cuda")
+    plain = OnlineSession(meta, CleanConfig(backend="torch", kernel=False), alert_iters=2,
+                          device="cuda")
+    # The kernel-off session takes the kernel session's host inputs: the
+    # same values from the same slabs (both passes only read them), and the
+    # host's baseline removal over the slab is most of a block's latency.
+    shared, host_s = [], []
+    inputs = sess.state.provisional_inputs
+
+    def timed_inputs():
+        t0 = time.perf_counter()
+        shared[:] = [inputs()]
+        host_s.append(time.perf_counter() - t0)
+        return shared[0]
+
+    sess.state.provisional_inputs = timed_inputs
+    plain.state.provisional_inputs = lambda: shared[0]
+    rows = []
+    for b in range(nblocks):
+        lo = b * FOLLOW_BLOCK
+        data, weights = ar.data[lo:lo + FOLLOW_BLOCK], ar.weights[lo:lo + FOLLOW_BLOCK]
+        before = fk.fused_fit_moments.launches
+        with _init_times(chunked, "SlabUploader") as up:
+            alert = sess.ingest(data, weights)
+        n = fk.fused_fit_moments.launches - before
+        # The pass streams nsub_total / pass_block slabs per iteration.
+        want = (alert.nsub_total // FOLLOW_BLOCK) * alert.pass_iterations
+        check(n == want, f"follow block {b}: launches {n} != {want} (slabs x iterations)")
+        if b == ROLLBACK_BLOCK:
+            _check_rollback(plain, data, weights)
+        before = fk.fused_fit_moments.launches
+        off = plain.ingest(data, weights)
+        n_off = fk.fused_fit_moments.launches - before
+        check(n_off == 0, f"follow block {b}: the kernel-off session launched the kernel "
+              f"{n_off} times")
+        check(_alert_key(off) == _alert_key(alert),
+              f"follow block {b}: the alerts differ between the kernel and plain routes")
+        rows.append((alert, n, sum(up), host_s[-1], off.latency_s, n_off))
+    del sess.state.provisional_inputs, plain.state.provisional_inputs
+    check(sess._pass_block == FOLLOW_BLOCK, f"pass_block {sess._pass_block}")
+    log(f"follow, OnlineSession on the card, {nblocks} blocks of {FOLLOW_BLOCK} subints of "
+        f"{LOFAR}, alert_iters=2:")
+    for alert, n, up_s, in_s, off_s, _ in rows:
+        log(f"  block {alert.block_index} (subints {alert.subint_lo}:{alert.subint_hi}): "
+            f"latency {alert.latency_s:.4f}s (host baseline removal over the slab "
+            f"{in_s:.4f}s, uploader set-up {up_s:.4f}s), {alert.n_new_zaps} new zaps, "
+            f"rfi_frac {alert.provisional_rfi_frac:.4f}, {alert.pass_iterations} iterations, "
+            f"converged {alert.pass_converged}, kernel launches {n}; the kernel-off "
+            f"session's block (host inputs shared) {off_s:.4f}s")
+    log("  alerts identical (every field but latency) between the kernel and plain routes")
+    out = {"follow_passes_kernel": sum(row[1] for row in rows),
+           "follow_passes_plain": sum(row[5] for row in rows)}
+    del plain
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fk.fused_fit_moments.launches = 0
+    t0 = time.perf_counter()
+    fin = sess.finalize()
+    fin_s = time.perf_counter() - t0
+    out["follow_finalize"] = fk.fused_fit_moments.launches
+    res = fin.result
+    check(np.array_equal(res.weights, ora.weights)
+          and (res.loops, res.converged) == (ora.loops, ora.converged),
+          "finalize's mask differs from the oracle's")
+    check(out["follow_finalize"] == res.loops + 1,
+          f"finalize launches {out['follow_finalize']} != {res.loops} loops + 1 warm-up")
+    log(f"  finalize (the canonical clean of the assembled archive): {fin_s:.2f}s, mask "
+        f"identical to the oracle's, {fin.to_dict()}, kernel launches "
+        f"{out['follow_finalize']} (loops + the warm-up's 1)")
+    del sess, fin
+    gc.collect()
+    return out
+
+
+def _write_prefix(full, path: str, n: int) -> None:
+    """Atomically rewrite ``path`` with the first ``n`` subints of ``full``."""
+    from dataclasses import replace
+
+    from iterative_cleaner_tpu_torch.io.npz import NpzIO
+
+    part = replace(full, data=full.data[:n].copy(), weights=full.weights[:n].copy())
+    NpzIO().save(part, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _follow_cli() -> int:
+    """follow_archive on a 32 x 1024 x 1024 archive grown in 4 atomic
+    rewrites of 8 subints; then one ``python -m iterative_cleaner_tpu_torch
+    --follow`` process on the complete file."""
+    import numpy as np
+
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.io.npz import NpzIO
+    from iterative_cleaner_tpu_torch.io.synthetic import make_archive
+    from iterative_cleaner_tpu_torch.io.tail import eos_sentinel
+    from iterative_cleaner_tpu_torch.online.follow import follow_archive
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+
+    nsub, step = 32, 8
+    full = make_archive(nsub=nsub, nchan=LOFAR[1], nbin=LOFAR[2], seed=302)
+    ora = clean_cube(*preprocess(full), CleanConfig(backend="numpy"))
+    log(f"CLI follow: nsub cut from {LOFAR[0]} to {nsub} for the NPZ writer (each growth "
+        f"step rewrites the file); channels and bins at full width; oracle loops {ora.loops}")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ict_follow_") as tmp:
+        path = os.path.join(tmp, "grow.npz")
+        writes = []
+
+        def grow(n):
+            t0 = time.perf_counter()
+            _write_prefix(full, path, n)
+            writes.append(time.perf_counter() - t0)
+
+        grow(step)
+        steps = iter([lambda n=n: grow(n) for n in range(2 * step, nsub + 1, step)]
+                     + [lambda: open(eos_sentinel(path), "w").close()])
+        os.chdir(tmp)
+        fk.fused_fit_moments.launches = 0
+        try:
+            t0 = time.perf_counter()
+            with _stderr_to(io.StringIO()) as said:
+                rep = follow_archive(path, CleanConfig(backend="torch"), poll_s=0.0,
+                                     idle_timeout_s=600,
+                                     sleep=lambda s: next(steps, lambda: None)())
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        launches = fk.fused_fit_moments.launches
+        text = said.getvalue()
+        check(rep.error is None and text.count("provisional zap") == nsub // step,
+              f"follow_archive: {text.count('provisional zap')} alerts, want {nsub // step}")
+        check("end of stream after 4 block(s)" in text, "no end-of-stream line")
+        served = NpzIO().load(rep.out_path).weights
+        check(np.array_equal(served, ora.weights) and rep.loops == ora.loops,
+              "follow_archive's mask differs from the oracle's on the finished file")
+        log(f"  follow_archive in-process: {nsub // step} growth steps (rewrites "
+            + ", ".join(f"{w:.2f}" for w in writes) + " s), wall "
+            f"{wall:.2f}s of which the rewrites {sum(writes[1:]):.2f}s; 4 alerts; mask = the "
+            f"oracle's; kernel launches {launches}")
+
+        os.remove(rep.out_path)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "iterative_cleaner_tpu_torch", "--follow",
+                               "--follow_poll", "0.01", "-q", path],
+                              capture_output=True, text=True, env=env, cwd=tmp, timeout=300)
+        sub_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"--follow process exited {proc.returncode}:\n"
+              f"{proc.stderr[-2000:]}")
+        check(np.array_equal(NpzIO().load(path + "_cleaned.npz").weights, ora.weights),
+              "the --follow process's mask differs from the oracle's")
+        log(f"  python -m iterative_cleaner_tpu_torch --follow on the complete file (.eos "
+            f"present): rc 0 in {sub_s:.2f}s, mask = the oracle's")
+    return launches
+
+
+def phase_follow(lofar) -> dict:
+    """The online session: the library at LOFAR, then the CLI's tail."""
+    launches = _follow_library(lofar)
+    launches["follow_cli"] = _follow_cli()
+    return launches
+
+
 def _host_available_bytes() -> int:
     with open("/proc/meminfo") as fh:
         for line in fh:
@@ -1329,20 +1818,12 @@ def phase_north_star(entry) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         fk.fused_fit_moments.launches = 0
-        saved = os.environ.get("ICT_HBM_BYTES")
-        if mem is not None:
-            os.environ["ICT_HBM_BYTES"] = str(mem)
-        try:
+        with _hbm_budget(mem) if mem is not None else contextlib.nullcontext():
             block = autoshard.chunk_block_subints(shape, cfg, "cuda")
             t0 = time.perf_counter()
             with _stderr_to(io.StringIO()) as errbuf:
                 res = clean_cube(D, w0, cfg, device="cuda")
             wall = time.perf_counter() - t0
-        finally:
-            if saved is None:
-                os.environ.pop("ICT_HBM_BYTES", None)
-            else:
-                os.environ["ICT_HBM_BYTES"] = saved
         peak = torch.cuda.max_memory_allocated()
         launches[name] = fk.fused_fit_moments.launches
         results[name] = res
@@ -1399,6 +1880,8 @@ def main() -> int:
     timed("peak model", phase_peak_model, lofar)
     timed("warm-up", phase_warmup, lofar)
     by_path.update(timed("batch", phase_batch, lofar))
+    by_path.update(timed("sweep", phase_sweep, lofar))
+    by_path.update(timed("follow", phase_follow, lofar))
     del lofar
     by_path.update(timed("north star", phase_north_star, entry))
     entry["launches_by_path"] = by_path

@@ -9,7 +9,9 @@ points run on the card unless the caller passes ``device="cpu"``.
 Layer map (module names mirror the JAX package's):
 
   CLI / driver        .cli, .driver                     (host)
+  online              .online.follow, .session, .state  (--follow: growing archives)
   model               .models.surgical                  (archive in/out)
+                      .models.sweep                     (--sweep: threshold grids)
   core loop           .core.cleaner                     (backend-agnostic)
   backends            .backends.numpy_backend (oracle)  (executable spec)
                       .backends.torch_backend           (device, stepwise)
@@ -18,7 +20,7 @@ Layer map (module names mirror the JAX package's):
   ops                 .ops.template, .masked, .stats    (torch ops)
                       .ops.fused_kernels + csrc/*.cu    (hand-written CUDA)
                       .ops.preprocess                   (host, numpy)
-  io                  .io.*                             (NPZ)
+  io                  .io.*                             (NPZ; .io.tail polls a growing file)
   state transfer      .convert                          (from the JAX package)
 """
 

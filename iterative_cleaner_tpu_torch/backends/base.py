@@ -30,7 +30,10 @@ class CleanerBackend(Protocol):
 
 
 def make_backend(D: np.ndarray, w0: np.ndarray, cfg: CleanConfig,
-                 device=None) -> CleanerBackend:
+                 device="cuda") -> CleanerBackend:
+    """The stepwise backend ``cfg.backend`` names; the torch backend runs on
+    ``device`` (default the card; raises when there is none), the numpy
+    oracle ignores it."""
     if cfg.backend == "numpy":
         from iterative_cleaner_tpu_torch.backends.numpy_backend import NumpyCleaner
 

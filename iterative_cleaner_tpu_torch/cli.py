@@ -5,9 +5,10 @@ Port of ``iterative_cleaner_tpu/cli.py``: the reference flag surface
 ``--backend {numpy,torch}`` (default torch), ``--device`` (default cuda),
 ``--kernel/--no_kernel``, ``--fused``, ``--chunk_block``, ``--no_auto_shard``,
 ``--no_incremental_template``, ``--sharded_batch``, ``--stream``,
-``--resume``, ``--audit``, ``--dump_masks`` and ``--report``.  ``-z`` and
-the JAX package's other extensions are not yet ported.  The exit code is 1
-when any archive failed.
+``--resume``, ``--follow`` (with ``--follow_poll``, ``--follow_timeout``,
+``--alert_iters``), ``--sweep``, ``--audit``, ``--dump_masks`` and
+``--report``.  ``-z`` and the JAX package's other extensions are not yet
+ported.  The exit code is 1 when any archive failed, 2 for a usage error.
 
 Run as ``python -m iterative_cleaner_tpu_torch`` or ``ict-clean-torch``.
 """
@@ -110,6 +111,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "archives are decoded, overlapping host I/O with device "
                         "compute (default: load the whole directory first, "
                         "unless it is larger than a quarter of host memory)")
+    p.add_argument("--follow", action="store_true",
+                   help="online mode: tail each archive as it GROWS on disk (a "
+                        "writer atomically rewriting it with more subints), "
+                        "emit provisional zap alerts within one poll of each "
+                        "block landing, and at end-of-stream (<archive>.eos "
+                        "sentinel, or no growth for --follow_timeout) run the "
+                        "canonical clean on the completed file — the final "
+                        "mask is the ordinary offline result; the alerts are "
+                        "advisory")
+    p.add_argument("--follow_poll", type=float, default=1.0, metavar="S",
+                   help="--follow: seconds between growth polls (default 1)")
+    p.add_argument("--follow_timeout", type=float, default=30.0, metavar="S",
+                   help="--follow: end-of-stream after this many seconds "
+                        "without growth when no .eos sentinel appears "
+                        "(default 30)")
+    p.add_argument("--alert_iters", type=int, default=2, metavar="N",
+                   help="--follow: provisional clean-pass iterations per "
+                        "ingested block (default 2)")
+    p.add_argument("--sweep", nargs="+", default=None, metavar="C:S",
+                   help="threshold sweep mode: clean each archive under every "
+                        "given chanthresh:subintthresh pair in one batched "
+                        "device dispatch; prints a rfi_frac/loops table per "
+                        "archive and saves <archive>_sweep.npz with all "
+                        "masks. No cleaned archives are written in this mode")
     p.add_argument("--audit", action="store_true",
                    help="after each archive, replay it through the numpy "
                         "oracle and compare the final masks")
@@ -149,18 +174,44 @@ def config_from_args(args: argparse.Namespace) -> CleanConfig:
     )
 
 
+def parse_sweep_pairs(specs: list[str]) -> list[tuple[float, float]]:
+    pairs = []
+    for spec in specs:
+        try:
+            c, s = spec.split(":")
+            pairs.append((float(c), float(s)))
+        except ValueError:
+            raise ValueError(
+                f"bad --sweep pair {spec!r}; expected chanthresh:subintthresh "
+                "like 5:5") from None
+    return pairs
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     try:
         cfg = config_from_args(args)
+        sweep_pairs = parse_sweep_pairs(args.sweep) if args.sweep else None
+        if args.follow and (args.sharded_batch or args.sweep):
+            raise ValueError("--follow tails growing single archives and "
+                             "cannot combine with --sharded_batch/--sweep")
+        if args.follow and args.alert_iters < 1:
+            raise ValueError(f"--alert_iters must be >= 1, got {args.alert_iters}")
     except ValueError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    from iterative_cleaner_tpu_torch.driver import run, write_report
+    from iterative_cleaner_tpu_torch import driver
 
-    reports = run(args.archive, cfg, device=args.device)
+    if sweep_pairs is not None:
+        reports = driver.run_sweep(args.archive, cfg, sweep_pairs, device=args.device)
+    elif args.follow:
+        reports = driver.run_follow(args.archive, cfg, poll_s=args.follow_poll,
+                                    idle_timeout_s=args.follow_timeout,
+                                    alert_iters=args.alert_iters, device=args.device)
+    else:
+        reports = driver.run(args.archive, cfg, device=args.device)
     if args.report:
-        write_report(reports, args.report)
+        driver.write_report(reports, args.report)
     return 0 if all(r.error is None for r in reports) else 1
 
 

@@ -3,10 +3,12 @@
 Port of ``iterative_cleaner_tpu/driver.py:23-420`` and ``:529-577``: output
 naming, the residual archive, the mask dump, the append-only clean.log, the
 reference's console strings (docs/PARITY.md), per-archive failure isolation,
-a one-archive read-ahead for sequential batches, ``--resume``, and the
+a one-archive read-ahead for sequential batches, ``--resume``, the
 directory batch (``--sharded_batch``, ``--stream``, on one card) with its
-automatic switch to the streaming dispatcher above a host-memory threshold.
-Sweep, follow and the multi-host split are not yet ported.
+automatic switch to the streaming dispatcher above a host-memory threshold,
+the online ``--follow`` tail (``run_follow``, ``:423-451``) and the
+threshold sweep (``run_sweep``, ``:483-526``).  The multi-host split
+(``partition_paths``) is not yet ported: on one process it is the identity.
 """
 
 from __future__ import annotations
@@ -305,6 +307,67 @@ def run_sharded_batch(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
         if i not in reports:  # the all-at-once route, and failed loads when streaming
             emit_item(i, item)
     return [reports[i] for i in range(len(items))]
+
+
+def run_follow(paths: list[str], cfg: CleanConfig, poll_s: float = 1.0,
+               idle_timeout_s: float = 30.0, alert_iters: int = 2, log_dir: str = ".",
+               sleep=None, device="cuda") -> list[ArchiveReport]:
+    """--follow: tail each growing archive through the online subsystem
+    (``online/follow.py``) on ``device``, one after another, with per-archive
+    failure isolation — a dead stream must not kill its siblings.
+    ``sleep`` is the tail loop's injectable wait (tests drive growth through
+    it)."""
+    from iterative_cleaner_tpu_torch.online.follow import follow_archive
+
+    invocation = list(paths)
+    reports = []
+    for path in paths:
+        try:
+            reports.append(follow_archive(
+                path, cfg, poll_s=poll_s, idle_timeout_s=idle_timeout_s,
+                alert_iters=alert_iters, log_dir=log_dir, all_paths=invocation,
+                sleep=sleep, device=device))
+        except Exception as exc:  # noqa: BLE001 — isolate, report, continue
+            reports.append(ArchiveReport(path=path, out_path=None, error=str(exc)))
+            print(f"ERROR following {path}: {exc}", file=sys.stderr)
+    return reports
+
+
+def run_sweep(paths: list[str], cfg: CleanConfig, pairs: list[tuple[float, float]],
+              device="cuda") -> list[ArchiveReport]:
+    """--sweep: per archive, the whole threshold grid on ``device``
+    (``models/sweep.py``), the table printed, ``<path>_sweep.npz`` saved.
+    Exploratory: no cleaned archives, no clean.log."""
+    from iterative_cleaner_tpu_torch.config import warn_zero_threshold
+    from iterative_cleaner_tpu_torch.models.sweep import (
+        format_table,
+        save_sweep,
+        sweep_thresholds,
+    )
+    from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+
+    if any(c == 0 or s == 0 for c, s in pairs):
+        # Sweep thresholds never pass through a CleanConfig, so the
+        # degenerate-threshold check fires here.
+        warn_zero_threshold()
+    if cfg.backend != "torch":
+        print("error: --sweep requires --backend=torch", file=sys.stderr)
+        return [ArchiveReport(path=p, out_path=None, error="--sweep requires backend='torch'")
+                for p in paths]
+    reports = []
+    for path in paths:
+        try:
+            D, w0 = preprocess(get_io(path).load(path))
+            points = sweep_thresholds(D, w0, cfg, pairs, device=device)
+            print(f"Sweep {path} ({len(points)} threshold pairs):")
+            print(format_table(points))
+            out = f"{path}_sweep.npz"
+            save_sweep(points, out)
+            reports.append(ArchiveReport(path=path, out_path=out))
+        except Exception as exc:  # noqa: BLE001 — isolate, report, continue
+            reports.append(ArchiveReport(path=path, out_path=None, error=str(exc)))
+            print(f"ERROR sweeping {path}: {exc}", file=sys.stderr)
+    return reports
 
 
 def run(paths: list[str], cfg: CleanConfig, log_dir: str = ".",

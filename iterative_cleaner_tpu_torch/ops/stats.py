@@ -19,7 +19,10 @@ diagnostics.  NaN >= 1 is False, so fully-masked profiles are never flagged.
 Every division by a Python number goes through :func:`true_divide`: on the
 card PyTorch turns ``tensor / python_float`` into a multiplication by the
 reciprocal, which can differ from the division in the last bit — and a
-last-bit change of a score at 1.0 changes a mask.  The GSPMD partitioning
+last-bit change of a score at 1.0 changes a mask.  A threshold may also be
+a tensor of one value per archive of a batch (the threshold sweep's pairs,
+``models/sweep.py``): the division is then elementwise by that archive's
+value, the same IEEE quotient as the float's.  The GSPMD partitioning
 wrapper around the FFT (``stats.py:215-311``) has no counterpart here.
 """
 
@@ -34,10 +37,14 @@ from iterative_cleaner_tpu_torch.ops.masked import median4_nonneg, sort_prefix
 MA_FILL = 1e20
 
 
-def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:
+def true_divide(x: torch.Tensor, d) -> torch.Tensor:
     """``x / d`` as an IEEE division on every device (see module note).
-    The divisor is made on the device by a fill, not copied from the host,
-    so the call never waits for the device."""
+    A float divisor is made on the device by a fill, not copied from the
+    host, so the call never waits for the device.  An ``(a,)`` tensor
+    divides the maps ``([k,] a, nsub, nchan)`` of archive ``j`` by
+    ``d[j]``."""
+    if isinstance(d, torch.Tensor):
+        return x / d.to(x.dtype).reshape(-1, 1, 1)
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
@@ -129,12 +136,13 @@ def _select_medians_via(filled: torch.Tensor, n: torch.Tensor, ax3: int):
 
 
 def _scale_axis(stack4: torch.Tensor, valid: torch.Tensor,
-                axis: int, thresh: float) -> torch.Tensor:
+                axis: int, thresh) -> torch.Tensor:
     """All four diagnostics robust-scaled along ``axis`` of (nsub, nchan)
     (0: across subints, per channel; 1: across channels, per subint): two
     median selections over the (4, [a,] nsub, nchan) stack (values, then
     absolute deviations).  A leading archive axis is a batch: every median
-    stays within its archive."""
+    stays within its archive, and ``thresh`` may be one value per archive
+    (:func:`true_divide`)."""
     ax3 = axis - 2          # the reduced axis, counted from the end
     n = valid.sum(dim=ax3)
     valid3 = valid[None]
@@ -161,12 +169,13 @@ def _scale_axis(stack4: torch.Tensor, valid: torch.Tensor,
 
 
 def scale_and_combine(d_std, d_mean, d_ptp, d_fft, valid,
-                      chanthresh: float, subintthresh: float) -> torch.Tensor:
+                      chanthresh, subintthresh) -> torch.Tensor:
     """Robust-scale the four diagnostics per channel (across subints,
     / chanthresh) and per subint (across channels, / subintthresh), take the
     element-wise max (the mask-drop), and median the four rows.  Maps of
     shape (a, nsub, nchan) are a batch, scaled archive by archive (the
-    vmap of the JAX package's function)."""
+    vmap of the JAX package's function); there the thresholds may be floats
+    or ``(a,)`` tensors, one pair per archive."""
     stack4 = torch.stack((d_std, d_mean, d_ptp, d_fft), dim=0)
     per_chan = _scale_axis(stack4, valid, axis=0, thresh=chanthresh)
     per_subint = _scale_axis(stack4, valid, axis=1, thresh=subintthresh)
@@ -175,7 +184,7 @@ def scale_and_combine(d_std, d_mean, d_ptp, d_fft, valid,
 
 
 def comprehensive_stats(weighted: torch.Tensor, valid: torch.Tensor,
-                        chanthresh: float, subintthresh: float) -> torch.Tensor:
+                        chanthresh, subintthresh) -> torch.Tensor:
     """weighted residual cube → per-profile outlier score."""
     d_std, d_mean, d_ptp, d_fft = diagnostics(weighted, valid)
     return scale_and_combine(

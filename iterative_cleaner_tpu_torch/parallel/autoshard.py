@@ -25,7 +25,9 @@ belongs to a later slice; on one card it declines in the JAX package too.
 The directory batch has no JAX counterpart here (the JAX package fits a
 bucket by spreading it over ``dp``): on one card a bucket is cut into
 dispatches of at most :func:`archives_per_dispatch` archives, each sized by
-:func:`batch_working_set_bytes` before it runs.
+:func:`batch_working_set_bytes` before it runs.  The threshold sweep
+(``models/sweep.py``) sizes its pairs the same way, one plain-route archive
+per pair (the cube counted once per pair, though the pairs share it).
 """
 
 from __future__ import annotations

@@ -61,7 +61,10 @@ def batched_fused_clean(Db, w0b, validb, chanthresh, subintthresh, *,
                         max_iter, pulse_region, use_kernel=False):
     """The whole convergence loop for a batch, on the device.
 
-    Runs until every archive has stopped (its new mask repeated one in its
+    ``chanthresh`` / ``subintthresh`` are floats, or ``(a,)`` tensors of one
+    pair per archive: the threshold sweep (``models/sweep.py``) runs a grid
+    as a batch of one cube broadcast over a pair axis (``D.expand``, no
+    copy).  Runs until every archive has stopped (its new mask repeated one in its
     history) or ``max_iter`` iterations.  Nothing of (a, nsub, nchan) size
     goes to the host inside the loop; each iteration but the last reads the
     host once, for ``active.any()``.  Returns device tensors
