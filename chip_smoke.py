@@ -1,53 +1,75 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py      # needs one CUDA card; about 9 minutes on an H100
+    python3 chip_smoke.py      # needs one CUDA card; about 11 minutes on an H100
 
 Phases, in order, each with its seconds; any failure raises and the script
 exits non-zero:
 
 1. environment — torch / CUDA versions and the card's name and power limit
    (``nvidia-smi``); no CUDA device is a failure;
-2. build — every CUDA kernel of the main path, from the checkout's sources;
+2. build — every CUDA kernel of the main path from the checkout's sources
+   (``csrc/fused_fit_moments.cu``, ``csrc/ordered_template.cu``), one nvcc
+   per source, started together;
 3. kernel vs plain — each kernel's wrapper against its plain PyTorch version
-   on the card, at the main path's shape (256 x 1024 x 1024, BASELINE.json
-   config #2), at the chunked route's block (32 x 1024 x 1024) and at ragged
-   small shapes, with fills, a pulse region, a zero template and pre-zapped
-   profiles; the launch over a leading archive axis (a template per
-   archive) at ragged shapes and at 8 x 256 x 1024 x 1024, each archive
-   bit-identical to the 3-D launch on it alone; times the kernel (single,
-   at the online slab 32 x 1024 x 1024 and batched), its plain version and
-   the least time the card could take (bytes or operations over its
-   published peak);
+   on the card.  ``fused_fit_moments`` at the main path's shape
+   (256 x 1024 x 1024, BASELINE.json config #2), at the chunked route's
+   block (32 x 1024 x 1024) and at ragged small shapes, with fills, a pulse
+   region, a zero template and pre-zapped profiles; the launch over a
+   leading archive axis at ragged shapes and at 8 x 256 x 1024 x 1024, each
+   archive bit-identical to the 3-D launch on it alone.  ``ordered_template``
+   bit for bit at ragged shapes (zero weights, an inf and a NaN sample), a
+   sum continued block by block, a batch, and at the main path's shape.
+   Each is timed against its plain version, the least time the card could
+   take (bytes or operations over its published peak) and, for the
+   template, cuBLAS's matrix-vector product;
 4. main path — writes the seed-42 synthetic 256 x 1024 x 1024 archive,
    cleans it through ``iterative_cleaner_tpu_torch.cli.main`` with the
    defaults (torch backend, cuda, auto kernel, incremental template, the
-   warm-up thread), checks that the warm-up launched the kernel once and the
-   clean once per loop, and that the final mask is identical to the port's
-   numpy oracle and to its kernel-off route on the same preprocessed cube;
-   times each device layer of one iteration;
-5. fused loop — ``run_fused`` on the same cube: mask, loops, history
+   warm-up thread), checks the launches of both kernels (the warm-up's
+   once each; ``fused_fit_moments`` once per loop, ``ordered_template`` once
+   per dense template build), that the final mask is identical to the
+   port's numpy oracle and to its kernel-off route on the same preprocessed
+   cube, and that the last scores drift from the oracle's within the 5e-5
+   envelope; the drift split by layer (kernel or plain route, the FFT
+   diagnostic in pieces or as one transform, the template in the oracle's
+   order or as one matrix-vector product, TF32's flags); times each device
+   layer of one iteration;
+5. obs — on phase 4's archive, ``cli.main`` with ``--telemetry``,
+   ``--trace``, ``--audit`` and ``--report`` under ``ICT_FORENSICS=1``: the
+   event log (the run's spans, ``job_submitted``, ``clean_route``, one
+   ``iteration`` per loop with its per-diagnostic zap attribution), the
+   audit (mask identical, drift within the bound) and the quality summary
+   in the report, the capture's device kernels (``fused_fit_moments`` loops
+   + 1 times) and host spans, the device's busy share over the loop's
+   window with its top operations and idle gaps; the fused route's host
+   syncs with telemetry off and on; a bounded capture around ``run_fused``
+   (listed; an overlapping start refused); the device-memory view; the
+   watchdog silent on a live card; the metrics exposition through the
+   strict parser; the CLI's wall-clock with and without telemetry and
+   forensics;
+6. fused loop — ``run_fused`` on the same cube: mask, loops, history
    identical to the CLI's and the oracle's, one kernel launch per
    iteration; ``fused_clean`` on the cube already on the card makes at most
    one host sync per iteration plus the final fetch
    (``torch.cuda.set_sync_debug_mode``); wall-clocks beside the stepwise
    loop's;
-6. chunked route — ``clean_cube`` with ``chunk_block=32`` (8 blocks): the
+7. chunked route — ``clean_cube`` with ``chunk_block=32`` (8 blocks): the
    announcement, mask and loops identical to the oracle, launches = blocks x
    iterations, template passes, host→device GB/s and the uploader's
    overlap; pinned staging against registering the host cube with
    ``cudaHostRegister``;
-7. CLI routes — ``cli.main`` with ``--fused`` and with ``--chunk_block 8``
+8. CLI routes — ``cli.main`` with ``--fused`` and with ``--chunk_block 8``
    on a small archive (32 x 128 x 256): masks identical to the oracle;
-8. peak model — ``max_memory_allocated`` of whole cleans, kernel and plain
+9. peak model — ``max_memory_allocated`` of whole cleans, kernel and plain
    route, stepwise and fused, at 256 x 1024 x 1024 and 2048 x 1024 x 128
    (same bytes, 8x the profiles), fitted as cubes plus bytes per profile and
    held against ``parallel/autoshard``'s estimate; every fused and stepwise
    mask there identical to the oracle / to each other; where cuFFT's
    workspace lives;
-9. warm-up — iteration 1 of a clean in a fresh process, without and with
+10. warm-up — iteration 1 of a clean in a fresh process, without and with
    the warm-up thread first;
-10. batch — (a) ``sharded_clean`` over 8 LOFAR cubes in host memory
+11. batch — (a) ``sharded_clean`` over 8 LOFAR cubes in host memory
    (phase 4's, and 7 made with other seeds and RFI loads) in one dispatch:
    each archive's mask, loops and converged equal ``run_fused`` on it alone
    (dense template), archive 0's the oracle's, one launch per batch
@@ -55,29 +77,31 @@ exits non-zero:
    batched estimate, wall-clock beside the 8 single walls; the same bucket
    on a 9 GB ``ICT_HBM_BYTES`` budget in dispatches of 3, each under the
    budget; (b) ``cli.main`` with ``--sharded_batch``, ``--stream`` and
-   ``--resume`` on four 32 x 1024 x 1024 archives, one 16 x 1024 x 1024 and
+   ``--resume`` on four 8 x 1024 x 1024 archives, one 4 x 1024 x 1024 and
    a missing path (``nsub`` cut for the NPZ writer, the cut printed):
    rc 1, oracle-identical masks, clean.log lines, skips, launches per
    bucket;
-11. sweep — ``models/sweep.sweep_thresholds`` on phase 4's cube, a 3 x 3
+12. sweep — ``models/sweep.sweep_thresholds`` on phase 4's cube, a 3 x 3
    grid (chanthresh, subintthresh in {4, 5, 6}) in one dispatch: every
    point's mask, loops and converged equal the solo clean with its
-   thresholds, (5, 5) the oracle's, no kernel launch (the plain route, as
-   in the JAX package), the peak under the sizing's estimate, the grid's
-   wall beside the 9 solo walls; the same grid on a 20 GB
-   ``ICT_HBM_BYTES`` budget (dispatches of 2, 2, 2, 2, 1) and on 2 GB
+   thresholds, (5, 5) the oracle's, no ``fused_fit_moments`` launch (the
+   plain route, as in the JAX package), the peak under the sizing's
+   estimate, the grid's wall beside the 9 solo walls; the same grid on a
+   20 GB ``ICT_HBM_BYTES`` budget (dispatches of 2, 2, 2, 2, 1) and on 2 GB
    (beneath one pair: solo cleans through the chunked cleaner), the same
    points; ``cli.main --sweep`` on a 32 x 1024 x 1024 archive, its
    ``_sweep.npz`` equal to the library's points;
-12. follow — ``online.OnlineSession`` on the card fed phase 4's raw archive
+13. follow — ``online.OnlineSession`` on the card fed phase 4's raw archive
    in 8 blocks of 32 subints: each block's latency (its host share and the
-   uploader's set-up) and kernel launches (slabs x iterations); the alerts
-   identical to the kernel-off session's; a pass that dies rolls back;
-   ``finalize`` identical to the oracle; then ``online.follow_archive`` on
-   a 32 x 1024 x 1024 archive grown in 4 atomic rewrites of 8 subints (4
-   alerts, the oracle's mask) and one ``python -m
-   iterative_cleaner_tpu_torch --follow`` process on the complete file;
-13. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+   uploader's set-up) and kernel launches (slabs x iterations); the
+   session's counters (8 blocks ingested, 8 ``online_block`` phases); the
+   alerts identical to the kernel-off session's; a pass that dies rolls
+   back; ``finalize`` identical to the oracle; then
+   ``online.follow_archive`` on a 16 x 1024 x 1024 archive grown in 4
+   atomic rewrites of 4 subints (4 alerts, the oracle's mask) and one
+   ``python -m iterative_cleaner_tpu_torch --follow`` process on the
+   complete file;
+14. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the kernel over the
    whole cube (4.3e9 elements) against its plain version on slabs at its
@@ -86,8 +110,9 @@ exits non-zero:
    which routes it chunked), each with its peak device memory held against
    the estimate or the budget, wall-clock and per-iteration times; masks
    identical;
-14. one JSON line of the kernels (launches per path), then
-   ``{"ok": true, "device": ...}`` last.
+15. one JSON line of the kernels (launches per path; the template kernel's
+   per phase, each phase's count above 0), then ``{"ok": true, "device":
+   ...}`` last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -97,12 +122,13 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import multiprocessing as mp
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth and
 # float32 outside the tensor cores.
@@ -189,15 +215,26 @@ def phase_environment():
     return card
 
 
+#: The kernel sources of the main path (csrc/<stem>.cu).
+KERNEL_STEMS = ("fused_fit_moments", "ordered_template")
+
+
 def phase_build():
+    """Every kernel of the main path from the checkout's sources, one nvcc
+    per source, all started together."""
     from iterative_cleaner_tpu_torch.ops import cuda_build
 
-    t0 = time.perf_counter()
-    path = cuda_build.build("fused_fit_moments")
-    log(f"built {path.name} in {time.perf_counter() - t0:.2f}s")
-    for line in cuda_build.build_log("fused_fit_moments").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    def build(stem):
+        t0 = time.perf_counter()
+        return cuda_build.build(stem), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(KERNEL_STEMS)) as pool:
+        built = list(pool.map(build, KERNEL_STEMS))
+    for stem, (path, secs) in zip(KERNEL_STEMS, built):
+        log(f"built {path.name} in {secs:.2f}s")
+        for line in cuda_build.build_log(stem).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 def _inputs(shape, gen, *, prezap=0.01, zero_template=False):
@@ -442,17 +479,130 @@ def _batched_kernel_parity(gen) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err}
 
 
-def phase_main_path(entry):
-    import numpy as np
+def _same_floats(a, b) -> bool:
+    """Bit-identical where either is a number; NaN where the other is NaN."""
     import torch
 
-    from iterative_cleaner_tpu_torch import cli
-    from iterative_cleaner_tpu_torch.backends import torch_backend
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and bool((nan == torch.isnan(b)).all())
+            and bool(((a.view(torch.int32) == b.view(torch.int32)) | nan).all()))
+
+
+def _template_bound_ms(shape) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, bytes) of one ordered template over ``shape``:
+    D read once (4 B per element), the weights (4 B per profile) and the
+    template written (4 B per bin), against 2 f32 operations per element
+    (a multiply and an add)."""
+    nsub, nchan, nbin = shape
+    n, p = nsub * nchan * nbin, nsub * nchan
+    bytes_moved = 4 * n + 4 * p + 4 * nbin
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 2 * n / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_moved
+
+
+def phase_template_parity():
+    """The template kernel ordered_template (``ops/template.build_template``)
+    vs its plain PyTorch version on the card, bit
+    for bit: ragged shapes, zero weights, non-finite samples, a running sum
+    continued block by block (the chunked route) and a batch over a leading
+    archive axis; then at the main path's shape, timed against the plain
+    version, cuBLAS's matrix-vector product (the same sum in another order)
+    and the bound."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.ops import template as tp
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    cases = [("5x33x100", (5, 33, 100)), ("8x64x257", (8, 64, 257)),
+             ("3x7x31", (3, 7, 31)), ("16x32x4096", (16, 32, 4096)),
+             ("32x1024x1024 (a chunked block)", (32, 1024, 1024))]
+    tp.build_template.launches = 0
+    for k, (name, shape) in enumerate(cases):
+        D = torch.randn(shape, generator=gen, device="cuda") * 3
+        w = torch.rand(shape[:2], generator=gen, device="cuda")
+        w[torch.rand(shape[:2], generator=gen, device="cuda") < 0.2] = 0.0
+        if k == 1:   # an inf and a NaN sample, as the oracle meets them
+            D[1, 2, 7], D[3, 4, 9] = float("inf"), float("nan")
+        got = tp.build_template(D, w)
+        torch.cuda.synchronize()
+        want = tp.build_template_plain(D, w)
+        check(_same_floats(got, want), f"ordered_template {name}: kernel != plain")
+        cut = shape[0] // 2
+        cont = tp.build_template(D[cut:], w[cut:], init=tp.build_template(D[:cut], w[:cut]))
+        check(_same_floats(cont, got), f"ordered_template {name}: the continued sum differs")
+        Db, wb = torch.stack([D, -2 * D]), torch.stack([w, w.flip(0)])
+        tb = tp.build_template(Db, wb)
+        for j in range(2):
+            check(_same_floats(tb[j], tp.build_template(Db[j], wb[j])),
+                  f"ordered_template {name}: batched archive {j} != alone")
+        log(f"  ordered_template {name}: kernel == plain bit for bit; continued in two "
+            f"blocks and batched (2 archives) the same")
+        del D, w, got, want, cont, Db, wb, tb
+    check(tp.build_template.launches == 6 * len(cases), "parity launches were not counted")
+    torch.cuda.empty_cache()
+
+    nsub, nchan, nbin = LOFAR
+    D = torch.randn(LOFAR, generator=gen, device="cuda")
+    w = 0.8 + 0.4 * torch.rand((nsub, nchan), generator=gen, device="cuda")
+    w[torch.rand((nsub, nchan), generator=gen, device="cuda") < 0.01] = 0.0
+    kernel_ms = _time_ms(lambda: tp.build_template(D, w), runs=10)
+    library_ms = _time_ms(lambda: torch.matmul(w.reshape(-1), D.reshape(-1, nbin)), runs=20)
+    got = tp.build_template(D, w)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = tp.build_template_plain(D, w)
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    check(_same_floats(got, want), f"ordered_template at {LOFAR}: kernel != plain")
+    lib = torch.matmul(w.reshape(-1), D.reshape(-1, nbin))
+    rel = float(((lib - got).abs() / got.abs().clamp_min(1e-30)).max())
+    bound_ms, bound_by, bytes_moved = _template_bound_ms(LOFAR)
+    log(f"ordered_template at {LOFAR}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"(one call: {nsub * nchan} ordered adds) library_ms={library_ms:.4f} (cuBLAS "
+        f"matrix-vector product, another order: max relative difference {rel:.3e}) "
+        f"bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB, {bound_by}); kernel == plain "
+        f"bit for bit")
+    del D, w, got, want, lib
+    torch.cuda.empty_cache()
+    return {
+        "name": "ordered_template",
+        "route": "cuda",
+        "source": "iterative_cleaner_tpu_torch/csrc/ordered_template.cu",
+        "replaces": "iterative_cleaner_tpu/ops/template.py:45",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "parity": "ok (bit for bit)",
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def _drift(scores, oracle) -> float:
+    """Unit-floored relative score drift, as obs/audit.run_audit measures
+    it, over the entries finite on both sides."""
+    import numpy as np
+
+    fin = np.isfinite(oracle) & np.isfinite(scores)
+    return float(np.max(np.abs(scores[fin] - oracle[fin]) / np.maximum(np.abs(oracle[fin]), 1.0)))
+
+
+def _lofar_archive(work, pool):
+    """The main path's archive: made and written to ``work/main`` on this
+    thread while the host references (preprocessing, the numpy oracle) run
+    on the pool's other thread.  Started before the build, so the host's
+    single-threaded zlib writer overlaps the kernel phases; both are done
+    before the CLI starts, so its wall-clock is its own.  Returns (archive,
+    path, write seconds, (D, w0, oracle result, preprocess s, oracle s))."""
     from iterative_cleaner_tpu_torch.config import CleanConfig
     from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
     from iterative_cleaner_tpu_torch.io.npz import NpzIO
     from iterative_cleaner_tpu_torch.io.synthetic import make_archive
-    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
     from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
 
     def references(ar):
@@ -462,99 +612,166 @@ def phase_main_path(entry):
         ora = clean_cube(D, w0, CleanConfig(backend="numpy"))
         return D, w0, ora, t1 - t0, time.perf_counter() - t1
 
+    t0 = time.perf_counter()
+    tmp = os.path.join(work, "main")
+    os.makedirs(tmp)
+    ar = make_archive(nsub=LOFAR[0], nchan=LOFAR[1], nbin=LOFAR[2], seed=42)
+    refs = pool.submit(references, ar)
+    path = os.path.join(tmp, "lofar_seed42.npz")
+    NpzIO().save(ar, path)
+    return ar, path, time.perf_counter() - t0, refs.result()
+
+
+def phase_main_path(entries, lofar_prep):
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.backends import torch_backend
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.obs.audit import AUDIT_DRIFT_BOUND
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops import template as tp
+
     nsub, nchan, nbin = LOFAR
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="ict_smoke_") as tmp, \
-            ThreadPoolExecutor(1) as pool:
+    ar, path, write_s, (D, w0, ora, pre_s, ora_s) = lofar_prep.result()
+    tmp = os.path.dirname(path)
+    log(f"wrote {path} ({os.path.getsize(path) / 1e9:.2f} GB) in {write_s:.1f}s (started "
+        "before the build)")
+    log(f"preprocessed the same archive for the references in {pre_s:.1f}s and ran "
+        f"the numpy oracle at full size {LOFAR} in {ora_s:.1f}s, beside the write: "
+        f"loops={ora.loops}")
+
+    report_path = os.path.join(tmp, "report.json")
+    os.chdir(tmp)   # clean.log goes to the working directory
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fk.fused_fit_moments.launches = tp.build_template.launches = 0
         t0 = time.perf_counter()
-        ar = make_archive(nsub=nsub, nchan=nchan, nbin=nbin, seed=42)
-        # The host references (preprocessing, the numpy oracle) run on
-        # another core while the single-threaded zlib writer works; both
-        # are done before the CLI starts, so its wall-clock is its own.
-        refs = pool.submit(references, ar)
-        path = os.path.join(tmp, "lofar_seed42.npz")
-        NpzIO().save(ar, path)
-        log(f"wrote {path} ({os.path.getsize(path) / 1e9:.2f} GB) in "
-            f"{time.perf_counter() - t0:.1f}s")
-        D, w0, ora, pre_s, ora_s = refs.result()
-        log(f"preprocessed the same archive for the references in {pre_s:.1f}s and ran "
-            f"the numpy oracle at full size {LOFAR} in {ora_s:.1f}s, beside the write: "
-            f"loops={ora.loops}")
+        with _recording(torch_backend, "start_precompile") as warm:
+            rc = cli.main([path, "-q", "--dump_masks", "--report", report_path])
+        wall = time.perf_counter() - t0
+        launches = fk.fused_fit_moments.launches
+        t_launches = tp.build_template.launches
+    finally:
+        os.chdir(cwd)
+    check(rc == 0, f"cli.main returned {rc}")
+    rep = json.load(open(report_path))[0]
+    out_path = rep["out_path"]
+    check(out_path and os.path.exists(out_path), "no cleaned archive written")
+    check(os.path.exists(out_path + "_masks.npz"), "no mask dump written")
+    check(os.path.exists(os.path.join(tmp, "clean.log")), "no clean.log written")
+    loops, iters = rep["loops"], rep["iteration_s"]
+    log(f"CLI clean: rc={rc} wall={wall:.2f}s loops={loops} converged={rep['converged']} "
+        f"peak_device_mem={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log("  per-iteration wall-clock (s): " + ", ".join(f"{s:.4f}" for s in iters))
+    # The warm-up's dummy step (the route once on a zero cube while the
+    # host preprocesses) launches once; the clean once per loop.
+    check(len(warm) == 1 and warm[0] is not None, "the CLI started no warm-up")
+    check(warm[0].error is None, f"the warm-up failed: {warm[0].error!r}")
+    warm_launches = warm[0].launches
+    check(warm_launches == 1, f"the warm-up launched the kernel {warm_launches} times")
+    launches -= warm_launches
+    check(launches > 0, "the main path never launched the kernel")
+    check(launches == len(iters) and len(iters) == loops,
+          f"kernel launches {launches} (warm-up's {warm_launches} apart) != "
+          f"iterations {len(iters)} (loops {loops})")
+    # The template kernel: once in the warm-up, then for each dense
+    # build (iteration 1, and wherever more profiles flipped than the
+    # sparse update takes).
+    check(warm[0].template_launches == 1,
+          f"the warm-up launched ordered_template {warm[0].template_launches} times")
+    t_launches -= warm[0].template_launches
+    check(1 <= t_launches <= loops, f"ordered_template launches {t_launches} outside "
+          f"1..{loops} (one per dense template build)")
+    log(f"  launches: fused_fit_moments {launches} + the warm-up's {warm_launches}, "
+        f"ordered_template {t_launches} + the warm-up's {warm[0].template_launches}")
+    with np.load(out_path) as z:   # the weights member only, not the cube
+        served = z["weights"]
+    log(f"  {sum(iters):.3f}s of the CLI wall-clock was the cleaning loop")
+    with np.load(out_path + "_masks.npz") as z:
+        check(np.array_equal(z["history"][-1], served), "mask dump != cleaned weights")
+        scores = z["test_results"]
+        history = z["history"]
+    check(scores.shape == (nsub, nchan), f"scores shape {scores.shape}")
+    n_zapped = int((served == 0).sum())
+    log(f"  zapped {n_zapped} / {served.size} profiles "
+        f"({int(np.isfinite(scores).sum())} finite scores)")
+    check(0 < n_zapped < served.size, "implausible zap count")
 
-        report_path = os.path.join(tmp, "report.json")
-        os.chdir(tmp)   # clean.log goes to the working directory
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            fk.fused_fit_moments.launches = 0
-            t0 = time.perf_counter()
-            with _recording(torch_backend, "start_precompile") as warm:
-                rc = cli.main([path, "-q", "--dump_masks", "--report", report_path])
-            wall = time.perf_counter() - t0
-            launches = fk.fused_fit_moments.launches
-        finally:
-            os.chdir(cwd)
-        check(rc == 0, f"cli.main returned {rc}")
-        rep = json.load(open(report_path))[0]
-        out_path = rep["out_path"]
-        check(out_path and os.path.exists(out_path), "no cleaned archive written")
-        check(os.path.exists(out_path + "_masks.npz"), "no mask dump written")
-        check(os.path.exists(os.path.join(tmp, "clean.log")), "no clean.log written")
-        loops, iters = rep["loops"], rep["iteration_s"]
-        log(f"CLI clean: rc={rc} wall={wall:.2f}s loops={loops} converged={rep['converged']} "
-            f"peak_device_mem={torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        log("  per-iteration wall-clock (s): " + ", ".join(f"{s:.4f}" for s in iters))
-        # The warm-up's dummy step (the route once on a zero cube while the
-        # host preprocesses) launches once; the clean once per loop.
-        check(len(warm) == 1 and warm[0] is not None, "the CLI started no warm-up")
-        check(warm[0].error is None, f"the warm-up failed: {warm[0].error!r}")
-        warm_launches = warm[0].launches
-        check(warm_launches == 1, f"the warm-up launched the kernel {warm_launches} times")
-        launches -= warm_launches
-        check(launches > 0, "the main path never launched the kernel")
-        check(launches == len(iters) and len(iters) == loops,
-              f"kernel launches {launches} (warm-up's {warm_launches} apart) != "
-              f"iterations {len(iters)} (loops {loops})")
-        t0 = time.perf_counter()
-        served = NpzIO().load(out_path).weights
-        load_s = time.perf_counter() - t0
-        log(f"  reading the cleaned archive back took {load_s:.1f}s (the CLI's own "
-            f"load of the same-size input costs about as much); "
-            f"{sum(iters):.3f}s of the CLI wall-clock was the cleaning loop")
-        with np.load(out_path + "_masks.npz") as z:
-            check(np.array_equal(z["history"][-1], served), "mask dump != cleaned weights")
-            scores = z["test_results"]
-            history = z["history"]
-        check(scores.shape == (nsub, nchan), f"scores shape {scores.shape}")
-        n_zapped = int((served == 0).sum())
-        log(f"  zapped {n_zapped} / {served.size} profiles "
-            f"({int(np.isfinite(scores).sum())} finite scores)")
-        check(0 < n_zapped < served.size, "implausible zap count")
+    t0 = time.perf_counter()
+    before = fk.fused_fit_moments.launches
+    off = clean_cube(D, w0, CleanConfig(backend="torch", kernel=False), device="cuda")
+    log(f"kernel-off route (plain PyTorch on the card): loops={off.loops} "
+        f"in {time.perf_counter() - t0:.2f}s")
+    check(fk.fused_fit_moments.launches == before, "the kernel-off route launched it")
+    check(np.array_equal(off.weights, served), "mask differs from the kernel-off route")
+    check(off.loops == loops, "loops differ from the kernel-off route")
 
-        t0 = time.perf_counter()
-        before = fk.fused_fit_moments.launches
-        off = clean_cube(D, w0, CleanConfig(backend="torch", kernel=False), device="cuda")
-        log(f"kernel-off route (plain PyTorch on the card): loops={off.loops} "
-            f"in {time.perf_counter() - t0:.2f}s")
-        check(fk.fused_fit_moments.launches == before, "the kernel-off route launched it")
-        check(np.array_equal(off.weights, served), "mask differs from the kernel-off route")
-        check(off.loops == loops, "loops differ from the kernel-off route")
+    layer_times(D, w0, served)
 
-        layer_times(D, w0, served)
-
-        n_diff = int((ora.weights != served).sum())
-        check(n_diff == 0, f"{n_diff} mask entries differ from the numpy oracle")
-        check(ora.loops == loops and ora.converged == rep["converged"],
-              "loops/converged differ from the numpy oracle")
-        fin = np.isfinite(ora.test_results) & np.isfinite(scores)
-        drift = float(np.max(np.abs(scores[fin] - ora.test_results[fin])
-                             / np.maximum(np.abs(ora.test_results[fin]), 1.0)))
-        log(f"  mask identical to the oracle and the kernel-off route; "
-            f"max score drift vs oracle {drift:.3e}")
-    entry["launches"] = launches
+    n_diff = int((ora.weights != served).sum())
+    check(n_diff == 0, f"{n_diff} mask entries differ from the numpy oracle")
+    check(ora.loops == loops and ora.converged == rep["converged"],
+          "loops/converged differ from the numpy oracle")
+    drift = _drift(scores, ora.test_results)
+    log(f"  mask identical to the oracle and the kernel-off route; "
+        f"max score drift vs oracle {drift:.4e} (bound {AUDIT_DRIFT_BOUND:g})")
+    drift_layers(D, w0, ora, drift, off)
+    check(drift <= AUDIT_DRIFT_BOUND, f"score drift {drift:.4e} beyond the "
+          f"{AUDIT_DRIFT_BOUND:g} envelope")
+    entries["fused_fit_moments"]["launches"] = launches
+    entries["ordered_template"]["launches"] = t_launches
     return {"archive": ar, "D": D, "w0": w0, "served": served, "history": history,
-            "loops": loops,
+            "loops": loops, "path": path, "wall": wall,
             "converged": rep["converged"], "iteration_s": iters, "oracle": ora,
-            "warm_launches": warm_launches}
+            "warm_launches": warm_launches, "warm_template_launches": warm[0].template_launches}
+
+
+def drift_layers(D, w0, ora, drift, off) -> None:
+    """The score drift against the oracle at the main path's shape, split
+    by layer: the kernel route (the CLI's) against the plain route, the FFT
+    diagnostic in 2^25-element pieces against one transform, the template
+    summed in the oracle's order against one matrix-vector product (the
+    port's template before it took the oracle's order); TF32's flags."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.backends import torch_backend
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.ops import stats
+
+    cfg = CleanConfig(backend="torch")
+    pieces = stats.FFT_PIECE_ELEMENTS
+    stats.FFT_PIECE_ELEMENTS = D.size
+    try:
+        one_fft = clean_cube(D, w0, cfg, device="cuda")
+    finally:
+        stats.FFT_PIECE_ELEMENTS = pieces
+    ordered = torch_backend.build_template
+    torch_backend.build_template = lambda D_, w_: torch.matmul(
+        w_.reshape(-1).to(D_.dtype), D_.reshape(-1, D_.shape[-1]))
+    try:
+        matmul = {name: clean_cube(D, w0, cfg.replace(fused=fused), device="cuda")
+                  for name, fused in (("stepwise", False), ("fused", True))}
+    finally:
+        torch_backend.build_template = ordered
+    log("  score drift vs the oracle by layer: kernel route (the CLI) "
+        f"{drift:.4e}; plain route (kernel off) {_drift(off.test_results, ora.test_results):.4e}; "
+        f"FFT diagnostic as one transform instead of 2^25-element pieces "
+        f"{_drift(one_fft.test_results, ora.test_results):.4e}; the template as one cuBLAS "
+        "matrix-vector product instead of the oracle's order: stepwise "
+        f"{_drift(matmul['stepwise'].test_results, ora.test_results):.4e}, fused "
+        f"{_drift(matmul['fused'].test_results, ora.test_results):.4e}")
+    log(f"  TF32: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()!r} (cuDNN's TF32 flag "
+        f"{torch.backends.cudnn.allow_tf32} is not read: no convolution runs)")
+    for res in (one_fft, *matmul.values()):
+        check((res.weights == ora.weights).all(), "a layer variant's mask differs")
+    torch.cuda.empty_cache()
 
 
 def layer_times(D, w0, served) -> None:
@@ -587,6 +804,296 @@ def layer_times(D, w0, served) -> None:
         log(f"  layer {name}: {_time_ms(fn, runs=10):.4f} ms")
     del Dt, wt, vt, new_w, t, c, m, s, p, f
     torch.cuda.empty_cache()
+
+
+#: Device-activity categories of a torch.profiler Chrome trace.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+FUSED_KERNEL = "fused_fit_moments_kernel"
+TEMPLATE_KERNEL = "ordered_template_kernel"
+
+
+def _trace_file(directory) -> str:
+    import glob
+
+    from iterative_cleaner_tpu_torch.obs.profiling import TRACE_SUFFIX
+
+    files = glob.glob(os.path.join(directory, "*" + TRACE_SUFFIX))
+    check(len(files) == 1, f"{directory}: {len(files)} Chrome traces, want 1")
+    return files[0]
+
+
+def _device_events(path) -> list[dict]:
+    """The device activity of a Chrome trace: kernels, copies and sets,
+    sorted by start (microseconds)."""
+    with open(path) as fh:
+        evs = json.load(fh)["traceEvents"]
+    dev = [e for e in evs if e.get("cat") in DEVICE_CATS and "dur" in e]
+    return sorted(dev, key=lambda e: e["ts"]), evs
+
+
+def _short(name: str) -> str:
+    """A device operation's name without return type, namespaces, template
+    arguments and parameter list ("Memcpy HtoD (Pageable -> Device)" kept
+    to its first two words)."""
+    if name.startswith(("Memcpy", "Memset")):
+        return " ".join(name.split()[:2])
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].split("<")[0].split("::")[-1][:60]
+
+
+def _busy_report(dev: list[dict], t0: float, t1: float, label: str) -> dict:
+    """Busy share over [t0, t1] (the union of device intervals there), the
+    five device operations that took the most time and the largest idle
+    gaps, logged under ``label``."""
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in dev
+                   if e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    window = max(t1 - t0, 1e-9)
+    gaps = sorted(((merged[i + 1][0] - merged[i][1], merged[i][1])
+                   for i in range(len(merged) - 1)), reverse=True)[:5]
+    by_op: dict = {}
+    for e in dev:
+        if t0 <= e["ts"] < t1:
+            key = (e["cat"], _short(e["name"]))
+            tot, n = by_op.get(key, (0.0, 0))
+            by_op[key] = (tot + e["dur"], n + 1)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"  {label}: device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window, "
+        f"busy share {busy / window:.4f}, idle share {1 - busy / window:.4f}")
+    log("    top device operations: " + "; ".join(
+        f"{name} ({cat}) {tot / 1e3:.3f} ms x{n}" for (cat, name), (tot, n) in top))
+    log("    largest idle gaps: " + ", ".join(
+        f"{g / 1e3:.3f} ms at +{(at - t0) / 1e3:.1f} ms" for g, at in gaps))
+    return {"busy_share": busy / window, "window_ms": window / 1e3,
+            "top": [(name, tot / 1e3, n) for (_cat, name), (tot, n) in top],
+            "gaps_ms": [g / 1e3 for g, _ in gaps]}
+
+
+def phase_obs(lofar, entries) -> dict:
+    """Observability on the card, on the main path's LOFAR archive: the CLI
+    with --telemetry, --trace, --audit and --report under ICT_FORENSICS=1
+    (events, forensics, the audit, the report, the capture's kernels and
+    the device's busy share), the fused loop's host syncs with telemetry
+    on, a bounded capture around run_fused, the device-memory view, the
+    watchdog on a live card, the metrics exposition through the strict
+    parser, and the CLI's wall-clock with and without telemetry and
+    forensics."""
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.backends.torch_backend import run_fused
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.io.npz import NpzIO
+    from iterative_cleaner_tpu_torch.io.synthetic import make_archive
+    from iterative_cleaner_tpu_torch.obs import events, flight, memory, metrics, profiling, tracing
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops import template as tp
+    from iterative_cleaner_tpu_torch.parallel import autoshard
+    from iterative_cleaner_tpu_torch.utils import device_probe
+
+    loops, ora = lofar["loops"], lofar["oracle"]
+    work = os.path.join(os.path.dirname(os.path.dirname(lofar["path"])), "obs")
+    os.makedirs(work)
+    D, w0 = lofar["D"], lofar["w0"]
+    fcfg = CleanConfig(backend="torch", fused=True)
+    # A bounded capture around run_fused, first: no capture ran in this process yet.
+    root = os.path.join(work, "profiles")
+    rec = profiling.start(root, duration_s=60, tag="fused")
+    try:
+        try:
+            profiling.start(root, duration_s=1, tag="second")
+            check(False, "an overlapping capture was not refused")
+        except RuntimeError as exc:
+            check("already running" in str(exc), f"unexpected refusal {exc!r}")
+        before = fk.fused_fit_moments.launches
+        out = run_fused(D, w0, fcfg)
+        torch.cuda.synchronize()
+        x = fk.fused_fit_moments.launches - before
+    finally:
+        stopped = profiling.stop(expected_dir=rec["dir"])
+    check(stopped and "error" not in stopped, f"the bounded capture's stop: {stopped}")
+    check(np.array_equal(out[1], ora.weights), "run_fused under the capture: mask != oracle")
+    listed = [p["name"] for p in profiling.list_profiles(root)]
+    check(listed == [os.path.basename(rec["dir"])], f"list_profiles: {listed}")
+    dev_b, evs_b = _device_events(stopped["trace"])
+    fused_b = [e for e in dev_b if e["cat"] == "kernel" and FUSED_KERNEL in e["name"]]
+    spans_b = sum(1 for e in evs_b if e.get("cat") == "user_annotation"
+                  and e.get("name") == "fused_fit_moments")
+    check(fused_b, f"the bounded capture holds no {FUSED_KERNEL} kernel")
+    log(f"  bounded capture (profiling.start -> run_fused -> stop, on its own thread): "
+        f"{stopped['duration_s']:.2f}s, listed, an overlapping start refused; "
+        f"{FUSED_KERNEL} device kernels {len(fused_b)} at +"
+        + ", +".join(f"{(e['ts'] - dev_b[0]['ts']) / 1e3:.2f}" for e in fused_b)
+        + f" ms, host spans {spans_b}, launches {x}"
+        + ("" if len(fused_b) == x else " (a device record short of the launches)"))
+    fused_stats = _busy_report(dev_b, dev_b[0]["ts"], max(e["ts"] + e["dur"] for e in dev_b),
+                               "run_fused from host arrays (upload, loop, fetch)")
+
+    ev_path, tdir = os.path.join(work, "ev.jsonl"), os.path.join(work, "tdir")
+    rep_path = os.path.join(work, "r.json")
+    tracing.reset_counters()
+    flight.reset()
+    cwd = os.getcwd()
+    os.environ["ICT_FORENSICS"] = "1"
+    os.environ["ICT_REPRO_DIR"] = os.path.join(work, "repro")
+    fk.fused_fit_moments.launches = tp.build_template.launches = 0
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        with _stderr_to(io.StringIO()) as said:
+            rc = cli.main([lofar["path"], "-q", "-o", os.path.join(work, "obs_cleaned.npz"),
+                           "--telemetry", ev_path, "--trace", tdir, "--audit",
+                           "--report", rep_path])
+        obs_wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        os.environ.pop("ICT_FORENSICS")
+        os.environ.pop("ICT_REPRO_DIR")
+        events.configure(None)
+    launches = {"obs_cli": fk.fused_fit_moments.launches,
+                "obs_cli_template": tp.build_template.launches, "obs_capture": x}
+    check(rc == 0, f"the obs CLI returned {rc}")
+    check("backend_init_watchdog" not in said.getvalue(), "the watchdog fired on a live card")
+
+    # The event log.
+    with open(ev_path) as fh:
+        recs = [json.loads(line) for line in fh]
+    names = [r["event"] for r in recs]
+    for want in ("cli_run_start", "job_submitted", "clean_archive_start", "clean_archive_end",
+                 "cli_run_end"):
+        check(want in names, f"no {want} event")
+    # The clean's route, then the audit's replay through the oracle (its
+    # own clean_route and iterations, as in the JAX package).
+    routes = [r["route"] for r in recs if r["event"] == "clean_route"]
+    check(routes == ["stepwise", "numpy"], f"clean_route events {routes}")
+    replay = names.index("clean_route", names.index("clean_route") + 1)
+    iters = [r for r in recs[:replay] if r["event"] == "iteration"]
+    check(len(iters) == loops, f"{len(iters)} iteration events for {loops} loops")
+    check(names.count("iteration") == loops + ora.loops,
+          f"{names.count('iteration')} iteration events in all, want {loops} + the "
+          f"replay's {ora.loops}")
+    check(all(r.get("zaps_by_diagnostic") for r in recs if r["event"] == "iteration"),
+          "an iteration event has no zaps_by_diagnostic")
+    check(len({r["trace_id"] for r in recs}) == 1, "the run's events carry several trace ids")
+    log(f"obs: CLI --telemetry --trace --audit --report under ICT_FORENSICS=1 on {LOFAR}: "
+        f"rc 0, wall {obs_wall:.2f}s; {len(recs)} events: " + ", ".join(names))
+    log("  iterations: " + "; ".join(
+        f"{r['index']}: {r['n_new_zaps']} new zaps, rfi_frac {r['rfi_frac']:.6f}, votes "
+        f"{r['zaps_by_diagnostic']}" for r in iters))
+
+    # The report: the audit and the quality summary.
+    rep = json.load(open(rep_path))[0]
+    aud, qual = rep["audit"], rep["quality"]
+    check(aud["mask_identical"] and aud["drift_within_bound"],
+          f"the audit on the card: {aud}")
+    check(qual and qual["n_zapped"] == int((ora.weights == 0).sum()),
+          f"the report's quality summary {qual}")
+    check(rep["loops"] == loops, "the obs CLI's loops differ from the main path's")
+    log(f"  audit: mask identical, max score drift {aud['max_score_drift']:.4e} (bound "
+        f"{aud['drift_bound']:g}), oracle replay {aud['duration_s']:.1f}s; quality: zap_frac "
+        f"{qual['zap_frac']:.6f}, {qual['channels_fully_zapped']} channels and "
+        f"{qual['subints_fully_zapped']} subints fully zapped, termination "
+        f"{qual['termination']}")
+
+    # The capture: the kernels on both sides, the busy share of the loop.
+    dev, evs = _device_events(_trace_file(tdir))
+    fused_dev = [e for e in dev if e["cat"] == "kernel" and FUSED_KERNEL in e["name"]]
+    tmpl_dev = [e for e in dev if e["cat"] == "kernel" and TEMPLATE_KERNEL in e["name"]]
+    host = {n: sum(1 for e in evs if e.get("cat") == "user_annotation" and e.get("name") == n)
+            for n in ("fused_fit_moments", "ordered_template")}
+    check(len(fused_dev) == loops + 1, f"the capture holds {len(fused_dev)} {FUSED_KERNEL} "
+          f"device kernels, want loops + 1 = {loops + 1}")
+    check(len(fused_dev) == launches["obs_cli"], "device kernels != counted launches")
+    check(len(tmpl_dev) == launches["obs_cli_template"],
+          f"the capture holds {len(tmpl_dev)} {TEMPLATE_KERNEL} kernels, counted "
+          f"{launches['obs_cli_template']}")
+    check(host["fused_fit_moments"] >= loops, f"host spans {host}")
+    log(f"  --trace capture ({os.path.getsize(_trace_file(tdir)) / 1e6:.1f} MB): device "
+        f"kernels {FUSED_KERNEL} x{len(fused_dev)} (loops + the warm-up's), {TEMPLATE_KERNEL} "
+        f"x{len(tmpl_dev)}; host spans (this thread's; the warm-up runs on its own) "
+        f"fused_fit_moments x{host['fused_fit_moments']}, ordered_template "
+        f"x{host['ordered_template']}")
+    # The loop's window: from its first template build (the warm-up's comes
+    # first) to the capture's last device event; under ICT_FORENSICS=1 it
+    # holds the host's attribution replays between iterations.
+    t_loop = tmpl_dev[1]["ts"] if len(tmpl_dev) > 1 else fused_dev[1]["ts"]
+    t_end = max(e["ts"] + e["dur"] for e in dev)
+    trace_stats = _busy_report(dev, t_loop, t_end, "the CLI's cleaning loop (forensics on)")
+
+    # The fused loop's host syncs, telemetry off and on.
+    _, s_off = _count_syncs(lambda: clean_cube(D, w0, fcfg, device="cuda"))
+    events.configure(os.path.join(work, "sync.jsonl"))
+    try:
+        _, s_on = _count_syncs(lambda: clean_cube(D, w0, fcfg, device="cuda"))
+    finally:
+        events.configure(None)
+    check(len(s_on) == len(s_off), f"telemetry changed the fused route's host syncs: "
+          f"{len(s_off)} -> {len(s_on)}")
+    log(f"  fused route through clean_cube (upload included): host syncs {len(s_off)} with "
+        f"telemetry off, {len(s_on)} on")
+
+    # Device memory, the watchdog, the exposition.
+    memory.update_process_gauges()
+    snap = memory.device_snapshot()
+    total = torch.cuda.mem_get_info()[1]
+    _, labeled = tracing.gauges_snapshot()
+    peak = labeled.get(("route_hbm_peak_bytes", (("route", "stepwise"),)), 0.0)
+    check(snap and snap[0]["bytes_limit"] == total, f"device_snapshot {snap}")
+    check(peak > 0, "no stepwise route peak recorded")
+    check(autoshard.device_memory_bytes() == memory.device_memory_bytes() == total,
+          "autoshard and obs.memory disagree about the card's memory")
+    with _stderr_to(io.StringIO()) as quiet:
+        with device_probe.init_watchdog("smoke", timeout_s=0.1):
+            time.sleep(0.5)
+    check("backend_init_watchdog" not in quiet.getvalue()
+          and "backend_init_watchdog_fired" not in tracing.counters_snapshot(),
+          "the watchdog fired on a live card")
+    fams = metrics.parse_exposition(metrics.render_prometheus())
+    log(f"  memory: limit {total / 1e9:.2f} GB, in use {snap[0]['bytes_in_use'] / 1e9:.2f} GB, "
+        f"allocator peak {snap[0]['peak_bytes_in_use'] / 1e9:.2f} GB, route peaks "
+        + ", ".join(f"{dict(k[1])['route']} {v / 1e9:.2f} GB" for k, v in labeled.items()
+                    if k[0] == "route_hbm_peak_bytes")
+        + f"; watchdog silent on the live card; the exposition parses strictly "
+        f"({len(fams)} families)")
+
+    # The CLI's wall-clock with and without telemetry and forensics, on a
+    # small archive (nsub cut for the NPZ writer).
+    shape = (8, LOFAR[1], LOFAR[2])
+    small = os.path.join(work, "small.npz")
+    NpzIO().save(make_archive(*shape, seed=401), small)
+    walls = {}
+    os.chdir(work)
+    try:
+        for name in ("off", "on"):
+            flags = ["--telemetry", os.path.join(work, "t.jsonl")] if name == "on" else []
+            if name == "on":
+                os.environ["ICT_FORENSICS"] = "1"
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main([small, "-q", "-l", *flags])
+            finally:
+                os.environ.pop("ICT_FORENSICS", None)
+                events.configure(None)
+            walls.setdefault(name, []).append(time.perf_counter() - t0)
+            check(rc == 0, f"the timing CLI ({name}) returned {rc}")
+    finally:
+        os.chdir(cwd)
+    log(f"  CLI wall on {shape}: without telemetry "
+        + ", ".join(f"{w:.2f}" for w in walls["off"]) + " s; with --telemetry and "
+        "ICT_FORENSICS=1 " + ", ".join(f"{w:.2f}" for w in walls["on"]) + " s")
+    log(f"  CLI wall on {LOFAR}: the main path (defaults) {lofar['wall']:.2f}s; with "
+        f"--telemetry, ICT_FORENSICS=1, --audit and --trace {obs_wall:.2f}s")
+    del out
+    torch.cuda.empty_cache()
+    return launches, {"trace": trace_stats, "fused": fused_stats}
 
 
 def _count_syncs(fn):
@@ -727,6 +1234,9 @@ def phase_chunked(lofar) -> int:
     check((res.loops, res.converged, res.termination)
           == (ora.loops, ora.converged, ora.termination),
           "chunked loops/converged/termination differ from the oracle's")
+    drift = _drift(res.test_results, ora.test_results)
+    log(f"  max score drift vs oracle {drift:.4e}")
+    check(drift <= 5e-5, f"chunked score drift {drift:.4e} beyond the 5e-05 envelope")
     # The streamed template pass runs in iteration 1 and wherever more
     # profiles flipped than the sparse update's budget.
     flips = [int((a != b).sum()) for a, b in zip(res.history[1:-1], res.history[:-2])]
@@ -1161,45 +1671,53 @@ def _batch_library(lofar) -> dict:
     return {"batch": launches, "batch_budget": launches_b}
 
 
-def _batch_cli() -> dict:
-    """cli.main with --sharded_batch, then --stream, then --resume, on 4
-    archives of 32 x 1024 x 1024, one of 16 x 1024 x 1024 and a missing
-    path."""
-    import numpy as np
-
-    from iterative_cleaner_tpu_torch import cli
+def _batch_archive(args):
+    """One archive of the batch CLI part, written to ``tmp``, and the
+    oracle's result on it (run in a worker process)."""
     from iterative_cleaner_tpu_torch.config import CleanConfig
     from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
     from iterative_cleaner_tpu_torch.io.npz import NpzIO
     from iterative_cleaner_tpu_torch.io.synthetic import make_archive
-    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
     from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+
+    tmp, nsub, nchan, nbin, seed = args
+    ar = make_archive(nsub=nsub, nchan=nchan, nbin=nbin, seed=seed)
+    path = os.path.join(tmp, f"b{seed}.npz")
+    NpzIO().save(ar, path)
+    return path, clean_cube(*preprocess(ar), CleanConfig(backend="numpy"))
+
+
+def _batch_cli() -> dict:
+    """cli.main with --sharded_batch, then --stream, then --resume, on 4
+    archives of 8 x 1024 x 1024, one of 4 x 1024 x 1024 and a missing
+    path."""
+    import numpy as np
+
+    from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.io.npz import NpzIO
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
     from iterative_cleaner_tpu_torch.parallel import batch
 
     nchan, nbin = LOFAR[1:]
-    log(f"CLI batch: nsub cut from {LOFAR[0]} to 32 (and 16 for a second bucket): the NPZ "
+    log(f"CLI batch: nsub cut from {LOFAR[0]} to 8 (and 4 for a second bucket): the NPZ "
         f"zlib writer runs at about 48 s per GB on this host; channels and bins stay at "
         f"full width ({nchan} x {nbin})")
-    specs = [(32, 201), (32, 202), (32, 203), (32, 204), (16, 205)]
+    specs = [(8, 201), (8, 202), (8, 203), (8, 204), (4, 205)]
     cwd = os.getcwd()
     launches = {}
     with tempfile.TemporaryDirectory(prefix="ict_batch_cli_") as tmp:
-        def prepare(spec):
-            nsub, seed = spec
-            ar = make_archive(nsub=nsub, nchan=nchan, nbin=nbin, seed=seed)
-            path = os.path.join(tmp, f"b{seed}.npz")
-            NpzIO().save(ar, path)
-            return path, clean_cube(*preprocess(ar), CleanConfig(backend="numpy"))
-
-        # One thread per archive: zlib and most of numpy release the GIL.
+        # One process per archive: the oracle's robust scalers loop in
+        # Python over every channel and subint, which threads would
+        # serialise on the interpreter lock.
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=len(specs)) as pool:
-            made = list(pool.map(prepare, specs))
+        with ProcessPoolExecutor(len(specs), mp_context=mp.get_context("spawn")) as pool:
+            made = list(pool.map(_batch_archive, [(tmp, nsub, nchan, nbin, seed)
+                                                  for nsub, seed in specs]))
         paths = [p for p, _ in made]
         oracle = dict(made)
         del made
         log(f"  wrote {len(paths)} archives and ran the oracle on each in "
-            f"{time.perf_counter() - t0:.1f}s ({len(specs)} threads); oracle loops "
+            f"{time.perf_counter() - t0:.1f}s ({len(specs)} processes); oracle loops "
             + str([oracle[p].loops for p in paths]))
         missing = os.path.join(tmp, "missing.npz")
         argv = paths[:2] + [missing] + paths[2:]
@@ -1519,6 +2037,7 @@ def _follow_library(lofar) -> dict:
     import torch
 
     from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.obs import tracing
     from iterative_cleaner_tpu_torch.online import OnlineSession, SessionMeta
     from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
     from iterative_cleaner_tpu_torch.parallel import chunked
@@ -1544,12 +2063,16 @@ def _follow_library(lofar) -> dict:
     sess.state.provisional_inputs = timed_inputs
     plain.state.provisional_inputs = lambda: shared[0]
     rows = []
+    counted = {"online_blocks_ingested": 0.0, "online_block_n": 0.0}
     for b in range(nblocks):
         lo = b * FOLLOW_BLOCK
         data, weights = ar.data[lo:lo + FOLLOW_BLOCK], ar.weights[lo:lo + FOLLOW_BLOCK]
         before = fk.fused_fit_moments.launches
+        snap = tracing.snapshot()
         with _init_times(chunked, "SlabUploader") as up:
             alert = sess.ingest(data, weights)
+        for key in counted:
+            counted[key] += tracing.delta(snap, key)
         n = fk.fused_fit_moments.launches - before
         # The pass streams nsub_total / pass_block slabs per iteration.
         want = (alert.nsub_total // FOLLOW_BLOCK) * alert.pass_iterations
@@ -1566,6 +2089,11 @@ def _follow_library(lofar) -> dict:
         rows.append((alert, n, sum(up), host_s[-1], off.latency_s, n_off))
     del sess.state.provisional_inputs, plain.state.provisional_inputs
     check(sess._pass_block == FOLLOW_BLOCK, f"pass_block {sess._pass_block}")
+    check(counted == {"online_blocks_ingested": nblocks, "online_block_n": nblocks},
+          f"the kernel session's counters {counted}, want {nblocks} blocks")
+    log(f"  session counters (kernel session): online_blocks_ingested "
+        f"{counted['online_blocks_ingested']:.0f}, online_block phase count "
+        f"{counted['online_block_n']:.0f}")
     log(f"follow, OnlineSession on the card, {nblocks} blocks of {FOLLOW_BLOCK} subints of "
         f"{LOFAR}, alert_iters=2:")
     for alert, n, up_s, in_s, off_s, _ in rows:
@@ -1613,8 +2141,8 @@ def _write_prefix(full, path: str, n: int) -> None:
 
 
 def _follow_cli() -> int:
-    """follow_archive on a 32 x 1024 x 1024 archive grown in 4 atomic
-    rewrites of 8 subints; then one ``python -m iterative_cleaner_tpu_torch
+    """follow_archive on a 16 x 1024 x 1024 archive grown in 4 atomic
+    rewrites of 4 subints; then one ``python -m iterative_cleaner_tpu_torch
     --follow`` process on the complete file."""
     import numpy as np
 
@@ -1627,7 +2155,7 @@ def _follow_cli() -> int:
     from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
     from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
 
-    nsub, step = 32, 8
+    nsub, step = 16, 4
     full = make_archive(nsub=nsub, nchan=LOFAR[1], nbin=LOFAR[2], seed=302)
     ora = clean_cube(*preprocess(full), CleanConfig(backend="numpy"))
     log(f"CLI follow: nsub cut from {LOFAR[0]} to {nsub} for the NPZ writer (each growth "
@@ -1864,28 +2392,52 @@ def main() -> int:
     phase_environment()
     import torch
 
+    from iterative_cleaner_tpu_torch.ops import template as tp
+
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
         log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
         return out
 
-    timed("build", phase_build)
-    entry = timed("kernel parity", phase_kernel_parity)
-    lofar = timed("main path", phase_main_path, entry)
-    by_path = {"stepwise_cli": entry["launches"], "cli_warm_up": lofar["warm_launches"]}
-    by_path["fused"] = timed("fused", phase_fused, lofar)
-    by_path["chunked"] = timed("chunked", phase_chunked, lofar)
-    by_path.update(timed("CLI routes", phase_cli_routes))
-    timed("peak model", phase_peak_model, lofar)
-    timed("warm-up", phase_warmup, lofar)
-    by_path.update(timed("batch", phase_batch, lofar))
-    by_path.update(timed("sweep", phase_sweep, lofar))
-    by_path.update(timed("follow", phase_follow, lofar))
-    del lofar
-    by_path.update(timed("north star", phase_north_star, entry))
+    def timed_counted(name, fn, *args):
+        """A phase whose paths all build templates on the card: the
+        template kernel's launches over the phase, which must not be 0."""
+        tp.build_template.launches = 0
+        out = timed(name, fn, *args)
+        n = template_by_path[name.replace(" ", "_")] = tp.build_template.launches
+        check(n > 0, f"phase {name}: ordered_template was launched no time")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="ict_smoke_") as work, \
+            ThreadPoolExecutor(2) as prep:
+        lofar_prep = prep.submit(_lofar_archive, work, prep)
+        timed("build", phase_build)
+        entries = {"fused_fit_moments": timed("kernel parity", phase_kernel_parity)}
+        entries["ordered_template"] = timed("template parity", phase_template_parity)
+        entry = entries["fused_fit_moments"]
+        lofar = timed("main path", phase_main_path, entries, lofar_prep)
+        by_path = {"stepwise_cli": entry["launches"], "cli_warm_up": lofar["warm_launches"]}
+        template_by_path = {"stepwise_cli": entries["ordered_template"]["launches"],
+                            "cli_warm_up": lofar["warm_template_launches"]}
+        obs_launches, busy = timed("obs", phase_obs, lofar, entries)
+        by_path["obs_cli"] = obs_launches["obs_cli"]
+        by_path["obs_capture"] = obs_launches["obs_capture"]
+        template_by_path["obs_cli"] = obs_launches["obs_cli_template"]
+        by_path["fused"] = timed_counted("fused", phase_fused, lofar)
+        by_path["chunked"] = timed_counted("chunked", phase_chunked, lofar)
+        by_path.update(timed_counted("CLI routes", phase_cli_routes))
+        timed_counted("peak model", phase_peak_model, lofar)
+        timed("warm-up", phase_warmup, lofar)
+        by_path.update(timed_counted("batch", phase_batch, lofar))
+        by_path.update(timed_counted("sweep", phase_sweep, lofar))
+        by_path.update(timed_counted("follow", phase_follow, lofar))
+        del lofar
+    by_path.update(timed_counted("north star", phase_north_star, entry))
     entry["launches_by_path"] = by_path
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    entries["ordered_template"]["launches_by_path"] = template_by_path
+    entry["busy"] = busy
+    print(json.dumps({"kernels": list(entries.values())}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,10 +17,13 @@ Layer map (module names mirror the JAX package's):
                       .backends.torch_backend           (device, stepwise)
   parallel            .parallel.chunked, .autoshard     (cubes beyond the card)
                       .parallel.batch, .sharded, .mesh  (directory batch, one card)
-  ops                 .ops.template, .masked, .stats    (torch ops)
+  ops                 .ops.template, .masked, .stats    (torch ops; the template
+                                                         kernel csrc/ordered_template.cu)
                       .ops.fused_kernels + csrc/*.cu    (hand-written CUDA)
                       .ops.preprocess                   (host, numpy)
   io                  .io.*                             (NPZ; .io.tail polls a growing file)
+  observability       .obs.* , .utils.device_probe      (events, metrics, forensics,
+                                                         audit, torch.profiler, memory)
   state transfer      .convert                          (from the JAX package)
 """
 

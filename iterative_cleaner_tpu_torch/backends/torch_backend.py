@@ -35,6 +35,7 @@ from iterative_cleaner_tpu_torch.ops.stats import (
     fft_diagnostic,
     scale_and_combine,
 )
+from iterative_cleaner_tpu_torch.obs.tracing import compile_scope, shape_bucket_label
 from iterative_cleaner_tpu_torch.ops.template import build_template, fit_and_subtract
 
 # Per-iteration budget of profile flips the incremental template update
@@ -333,7 +334,9 @@ def start_precompile(shape, cfg: CleanConfig, want_residual: bool = False,
     ``error`` and not raised: the real call repeats the work and raises
     there.  The thread's ``launches`` is the kernel launches its dummy run
     made (the counter's movement while it ran; the caller makes none until
-    it joins).  The warm-up never changes the device or the route."""
+    it joins), ``template_launches`` the same for the template kernel.  A
+    kernel library built here is accounted to the cube's shape bucket.  The
+    warm-up never changes the device or the route."""
     if (cfg.backend != "torch" or os.environ.get("ICT_NO_PRECOMPILE") == "1"
             or cfg.chunk_block):
         return None
@@ -357,14 +360,16 @@ def start_precompile(shape, cfg: CleanConfig, want_residual: bool = False,
             if hbm is not None and (2 * clean_working_set_bytes(shape, cfg, use_kernel)
                                     > hbm * HBM_USABLE_FRACTION):
                 return
-            before = fused_fit_moments.launches
-            precompile_for(shape, cfg, want_residual, dev)
-            th.launches = fused_fit_moments.launches - before
+            before = fused_fit_moments.launches, build_template.launches
+            with compile_scope(shape_bucket_label(shape)):
+                precompile_for(shape, cfg, want_residual, dev)
+            th.launches = fused_fit_moments.launches - before[0]
+            th.template_launches = build_template.launches - before[1]
         except Exception as exc:  # noqa: BLE001 — warm-up only; the real call raises
             th.error = exc
 
     th = threading.Thread(target=_run, daemon=True, name="ict-precompile")
     th.error = None
-    th.launches = 0
+    th.launches = th.template_launches = 0
     th.start()
     return th

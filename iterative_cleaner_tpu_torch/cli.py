@@ -6,9 +6,15 @@ Port of ``iterative_cleaner_tpu/cli.py``: the reference flag surface
 ``--kernel/--no_kernel``, ``--fused``, ``--chunk_block``, ``--no_auto_shard``,
 ``--no_incremental_template``, ``--sharded_batch``, ``--stream``,
 ``--resume``, ``--follow`` (with ``--follow_poll``, ``--follow_timeout``,
-``--alert_iters``), ``--sweep``, ``--audit``, ``--dump_masks`` and
-``--report``.  ``-z`` and the JAX package's other extensions are not yet
-ported.  The exit code is 1 when any archive failed, 2 for a usage error.
+``--alert_iters``), ``--sweep``, ``--audit``, ``--dump_masks``, ``--report``,
+``--telemetry`` and ``--trace``.  ``-z`` and the JAX package's other
+extensions are not yet ported.  The exit code is 1 when any archive failed,
+2 for a usage error.
+
+Every run mints a trace id and wraps its work in the ``cli_run`` span, so
+the events of one invocation share it (``--telemetry`` / ``ICT_TELEMETRY``
+names the JSON-lines sink).  On the card the run sits under the CUDA
+initialisation watchdog (``utils/device_probe.init_watchdog``).
 
 Run as ``python -m iterative_cleaner_tpu_torch`` or ``ict-clean-torch``.
 """
@@ -16,6 +22,7 @@ Run as ``python -m iterative_cleaner_tpu_torch`` or ``ict-clean-torch``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from iterative_cleaner_tpu_torch.config import CleanConfig
@@ -137,12 +144,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "masks. No cleaned archives are written in this mode")
     p.add_argument("--audit", action="store_true",
                    help="after each archive, replay it through the numpy "
-                        "oracle and compare the final masks")
+                        "oracle and compare the final masks and scores; a "
+                        "divergence prints loudly and writes a repro bundle "
+                        "(ICT_REPRO_DIR, default ./ict_repro)")
     p.add_argument("--dump_masks", action="store_true",
                    help="save the per-iteration mask history as "
                         "<output>_masks.npz")
     p.add_argument("--report", type=str, default="", metavar="PATH",
                    help="write a JSON run report (one object per archive)")
+    p.add_argument("--trace", type=str, default="", metavar="DIR",
+                   help="write a torch.profiler capture (Chrome trace JSON) of "
+                        "each clean to DIR")
+    p.add_argument("--telemetry", type=str, default="", metavar="PATH",
+                   help="append structured telemetry events (trace context, "
+                        "route decisions, per-iteration convergence "
+                        "forensics) to PATH as JSON lines (ICT_TELEMETRY "
+                        "equivalent); ICT_FORENSICS=1 adds per-diagnostic "
+                        "zap attribution")
     return p
 
 
@@ -171,6 +189,7 @@ def config_from_args(args: argparse.Namespace) -> CleanConfig:
         resume=args.resume,
         dump_masks=args.dump_masks,
         audit=args.audit,
+        trace_dir=args.trace,
     )
 
 
@@ -188,7 +207,8 @@ def parse_sweep_pairs(specs: list[str]) -> list[tuple[float, float]]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    args = build_parser().parse_args(argv)
     try:
         cfg = config_from_args(args)
         sweep_pairs = parse_sweep_pairs(args.sweep) if args.sweep else None
@@ -201,15 +221,23 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     from iterative_cleaner_tpu_torch import driver
+    from iterative_cleaner_tpu_torch.obs import events
+    from iterative_cleaner_tpu_torch.utils.device_probe import init_watchdog
 
-    if sweep_pairs is not None:
-        reports = driver.run_sweep(args.archive, cfg, sweep_pairs, device=args.device)
-    elif args.follow:
-        reports = driver.run_follow(args.archive, cfg, poll_s=args.follow_poll,
-                                    idle_timeout_s=args.follow_timeout,
-                                    alert_iters=args.alert_iters, device=args.device)
-    else:
-        reports = driver.run(args.archive, cfg, device=args.device)
+    if args.telemetry:
+        events.configure(args.telemetry)
+    on_card = cfg.backend == "torch" and args.device.split(":")[0] == "cuda"
+    watchdog = init_watchdog("cli cuda init") if on_card else contextlib.nullcontext()
+    with watchdog, events.trace_scope(events.new_trace_id()), \
+            events.span("cli_run", argv=list(argv)):
+        if sweep_pairs is not None:
+            reports = driver.run_sweep(args.archive, cfg, sweep_pairs, device=args.device)
+        elif args.follow:
+            reports = driver.run_follow(args.archive, cfg, poll_s=args.follow_poll,
+                                        idle_timeout_s=args.follow_timeout,
+                                        alert_iters=args.alert_iters, device=args.device)
+        else:
+            reports = driver.run(args.archive, cfg, device=args.device)
     if args.report:
         driver.write_report(reports, args.report)
     return 0 if all(r.error is None for r in reports) else 1

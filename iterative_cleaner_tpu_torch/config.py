@@ -6,8 +6,12 @@ with the port's differences:
 
 - ``backend`` is one of ``numpy`` (the oracle) and ``torch``;
 - the tri-state ``pallas`` becomes ``kernel``: None = auto (the hand-written
-  CUDA kernel wherever it can run, see ``ops/fused_kernels.resolve_use_kernel``),
-  True = forced on, False = the plain PyTorch route;
+  CUDA fit/moments kernel wherever it can run, see
+  ``ops/fused_kernels.resolve_use_kernel``), True = forced on, False = the
+  plain PyTorch route.  It selects the fit/moments step only: the template
+  is summed by ``ops/template.build_template`` in the oracle's order on
+  every route (on the card its CUDA kernel ``csrc/ordered_template.cu``);
+- ``trace_dir`` names a ``torch.profiler`` capture (``--trace``);
 - ``sharded_batch`` (the directory batch on one card) requires the torch
   backend and may take the kernel: with no mesh to split the batch over,
   the JAX package's reason to keep its Pallas kernel off the batch does not
@@ -92,6 +96,7 @@ class CleanConfig:
     resume: bool = False           # skip archives whose cleaned output exists
     dump_masks: bool = False       # save the mask history next to the output
     audit: bool = False            # compare the final mask with the numpy oracle
+    trace_dir: str = ""            # torch.profiler capture directory (--trace)
 
     def __post_init__(self) -> None:
         if self.max_iter < 1:

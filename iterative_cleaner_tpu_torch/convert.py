@@ -16,20 +16,15 @@ import torch
 from iterative_cleaner_tpu_torch.backends.torch_backend import to_device
 from iterative_cleaner_tpu_torch.config import CleanConfig
 
-# JAX-config fields with no counterpart, and the value under which dropping
-# them changes nothing: trace_dir names a jax.profiler capture.
-_DROPPED = {"trace_dir": ""}
-
 
 def config_from_jax(fields: dict) -> CleanConfig:
     """The port's CleanConfig for ``dataclasses.asdict`` of the JAX one:
-    ``backend="jax"`` becomes ``"torch"``, ``pallas`` becomes ``kernel``.
+    ``backend="jax"`` becomes ``"torch"``, ``pallas`` becomes ``kernel``;
+    ``trace_dir`` keeps its directory, where the port writes a
+    ``torch.profiler`` capture instead of a ``jax.profiler`` one.
     Options whose routes are not yet ported raise (in CleanConfig) when set;
     an unknown field raises here."""
     fields = dict(fields)
-    for name, harmless in _DROPPED.items():
-        if name in fields and fields.pop(name) != harmless:
-            raise ValueError(f"{name} is not yet ported to the PyTorch package")
     if "pallas" in fields:
         fields["kernel"] = fields.pop("pallas")
     if fields.get("backend") == "jax":

@@ -12,14 +12,19 @@ chunked streaming backend.  The reference's iteration dynamics:
   the history, so oscillating masks also terminate;
 - ``loops`` records the stopping iteration.
 
-The events / forensics / compile-cache hooks of the JAX package are not
-carried over; observability is a later slice.
+The observability hooks are the JAX package's: ``iteration`` events with
+the forensics record of each loop (per-diagnostic zap attribution under
+``ICT_FORENSICS=1``, on every route: the stepwise backend's cube comes to
+the host from the card, the fused loop's from the caller's host arrays),
+a ``clean_route`` event and ``obs.memory.observe_route`` per route, and the
+route's kernel build accounted to the cube's shape bucket.  The JAX
+package's compile-cache bookkeeping has no counterpart: PyTorch does not
+compile per shape.
 """
 
 from __future__ import annotations
 
 import sys
-import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Callable
@@ -28,6 +33,13 @@ import numpy as np
 
 from iterative_cleaner_tpu_torch.backends.base import make_backend
 from iterative_cleaner_tpu_torch.config import CleanConfig
+from iterative_cleaner_tpu_torch.obs import events, forensics
+from iterative_cleaner_tpu_torch.obs import memory as obs_memory
+from iterative_cleaner_tpu_torch.obs.tracing import (
+    StepTimer,
+    compile_scope,
+    shape_bucket_label,
+)
 
 
 #: Cubes above this size skip the advisory >1e17 magnitude scan.
@@ -42,6 +54,10 @@ class IterationInfo:
     duration_s: float = 0.0    # host wall-clock of this iteration's step
     n_new_zaps: int = 0        # profiles newly zapped this iteration
     n_unzapped: int = 0        # profiles restored this iteration
+    # Per-diagnostic vote counts among this iteration's zaps (std/mean/ptp/
+    # fft) — filled only under ICT_FORENSICS=1 (obs/forensics.py: a host
+    # replay of the oracle score pipeline; expensive, so asked-for).
+    zaps_by_diagnostic: dict | None = None
 
 
 @dataclass
@@ -62,31 +78,17 @@ class CleanResult:
             return self.iterations[-1].rfi_frac
         return float((self.weights == 0).mean())
 
+    def quality_summary(self) -> dict:
+        """RFI data-quality facts of this clean's mask (obs/quality.py):
+        zap fraction, per-channel/per-subint occupancy histograms,
+        fully-zapped counts, termination reason.  Pre-sweep weights."""
+        from iterative_cleaner_tpu_torch.obs import quality
+
+        return quality.quality_summary(self.weights,
+                                       termination=self.termination)
+
 
 ProgressFn = Callable[[IterationInfo], None]
-
-
-class StepTimer:
-    """Host wall-clock per iteration (monotonic, high resolution)."""
-
-    def __init__(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def lap(self) -> float:
-        now = time.perf_counter()
-        dt, self._t0 = now - self._t0, now
-        return dt
-
-
-def termination_reason(converged: bool, history) -> str:
-    """Why a loop stopped, from its mask history: the final mask repeated
-    the previous one (``fixed_point``), an older one (``cycle``), or none
-    (``max_iter``)."""
-    if not converged:
-        return "max_iter"
-    if len(history) >= 2 and np.array_equal(history[-1], history[-2]):
-        return "fixed_point"
-    return "cycle"
 
 
 @dataclass
@@ -120,9 +122,17 @@ class LoopState:
 
         info = _iteration_info(x, self.history[-1], new_w,
                                duration_s=timer.lap() if timer else 0.0)
+        if forensics.attribution_enabled():
+            # Read-only host replay of the oracle score pipeline — which
+            # diagnostic voted for each of this iteration's zaps — with the
+            # template weights (self.w_prev) the step ran with.
+            info.zaps_by_diagnostic = forensics.attribute_from_backend(
+                backend, self.w_prev, new_w)
         self.infos.append(info)
         if progress is not None:
             progress(info)
+        if events.active():
+            events.emit("iteration", **forensics.iteration_record(info))
 
         # Full-history cycle detection, pre-loop weights included.
         stop = any(np.array_equal(new_w, old) for old in self.history)
@@ -131,7 +141,7 @@ class LoopState:
         if stop:
             self.loops = x
             self.converged = True
-            self.termination = termination_reason(True, self.history)
+            self.termination = forensics.termination_reason(True, self.history)
         return stop
 
     def run(self, backend, max_iter: int,
@@ -143,7 +153,7 @@ class LoopState:
                 break
         if not self.converged:
             self.loops = max_iter
-            self.termination = termination_reason(False, self.history)
+            self.termination = forensics.termination_reason(False, self.history)
 
     def result(self, residual: np.ndarray | None = None,
                timed: bool = False) -> CleanResult:
@@ -253,33 +263,55 @@ def clean_cube(
         if chunk_block is None:
             cfg = cfg.replace(incremental_template=False)
 
+    bucket = shape_bucket_label(D.shape)
     if cfg.fused and chunk_block is None:
         from iterative_cleaner_tpu_torch.backends.torch_backend import run_fused
 
-        out = run_fused(D, w0, cfg, want_residual=want_residual, device=device)
+        if events.active():
+            events.emit("clean_route", route="fused", shape=list(D.shape))
+        with compile_scope(bucket):
+            out = run_fused(D, w0, cfg, want_residual=want_residual, device=device)
+        obs_memory.observe_route("fused")
         test, w_final, loops, done, _x, history = out[:6]
         history = list(history)
+        # The per-loop records come from the fetched mask history, after
+        # the loop: the device loop itself makes no extra host sync.
         infos = []
         for i in range(1, len(history)):
             info = _iteration_info(i, history[i - 1], history[i])
+            if forensics.attribution_enabled():
+                info.zaps_by_diagnostic = forensics.attribute_zaps(
+                    D, w0, history[i - 1], history[i], cfg)
             infos.append(info)
             if progress is not None:
                 progress(info)
+            if events.active():
+                events.emit("iteration", **forensics.iteration_record(info))
         return CleanResult(
             weights=w_final, test_results=test, loops=loops, converged=done,
             iterations=infos, history=history,
             residual=out[6] if want_residual else None,
-            termination=termination_reason(done, history))
+            termination=forensics.termination_reason(done, history))
 
     if chunk_block is not None:
         from iterative_cleaner_tpu_torch.parallel.chunked import ChunkedTorchCleaner
 
+        if events.active():
+            events.emit("clean_route", route="chunked", shape=list(D.shape),
+                        block=chunk_block, why=chunk_why)
         backend = ChunkedTorchCleaner(D, w0, cfg, block=chunk_block,
                                       keep_residual=want_residual, device=device)
     else:
+        if events.active():
+            events.emit("clean_route",
+                        route="stepwise" if cfg.backend == "torch" else "numpy",
+                        shape=list(D.shape))
         backend = make_backend(D, w0, cfg, device=device)
     state = LoopState.start(w0)
-    state.run(backend, cfg.max_iter, progress=progress)
+    with compile_scope(bucket):
+        state.run(backend, cfg.max_iter, progress=progress)
+    if cfg.backend == "torch":
+        obs_memory.observe_route("chunked" if chunk_block is not None else "stepwise")
     residual = None
     if want_residual:
         r = backend.residual()

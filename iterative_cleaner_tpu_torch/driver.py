@@ -7,7 +7,10 @@ a one-archive read-ahead for sequential batches, ``--resume``, the
 directory batch (``--sharded_batch``, ``--stream``, on one card) with its
 automatic switch to the streaming dispatcher above a host-memory threshold,
 the online ``--follow`` tail (``run_follow``, ``:423-451``) and the
-threshold sweep (``run_sweep``, ``:483-526``).  The multi-host split
+threshold sweep (``run_sweep``, ``:483-526``), with the JAX package's
+telemetry: the ``job_submitted`` event and the ``clean_archive`` span per
+archive, and the ``--trace`` capture (``obs/profiling.profile_trace``)
+around each clean, the batch and each sweep.  The multi-host split
 (``partition_paths``) is not yet ported: on one process it is the identity.
 """
 
@@ -26,6 +29,8 @@ import numpy as np
 from iterative_cleaner_tpu_torch.config import CleanConfig
 from iterative_cleaner_tpu_torch.io.base import Archive, get_io, known_extension as _ext
 from iterative_cleaner_tpu_torch.models.surgical import SurgicalCleaner, SurgicalOutput
+from iterative_cleaner_tpu_torch.obs import events, quality
+from iterative_cleaner_tpu_torch.obs.profiling import profile_trace
 
 
 def output_name(cfg: CleanConfig, archive: Archive | None, path: str) -> str:
@@ -60,7 +65,8 @@ class ArchiveReport:
     # batch have no per-iteration laps, so they leave this empty rather than
     # reporting zeros).
     iteration_s: list[float] = field(default_factory=list)
-    audit: dict | None = None      # --audit record
+    audit: dict | None = None      # --audit record (obs/audit.run_audit)
+    quality: dict | None = None    # obs/quality.quality_summary of the saved mask
 
 
 def split_resumable(paths: list[str], cfg: CleanConfig):
@@ -156,7 +162,22 @@ def process_archive(path: str, cfg: CleanConfig, log_dir: str = ".",
 
     if not cfg.quiet:
         print("Total number of profiles: %s" % archive.weights.size)
-    out: SurgicalOutput = SurgicalCleaner(cfg, device=device).clean(archive, progress=progress)
+    if events.active():
+        # job_submitted carries the shape bucket (NSUBxNCHANxNBIN; pol is
+        # not a bucketing axis) and the config salt wherever work enters.
+        from iterative_cleaner_tpu_torch.ingest import cas
+        from iterative_cleaner_tpu_torch.obs.tracing import shape_bucket_label
+
+        s = archive.data.shape
+        shape_hint = [int(s[0]), int(s[2]), int(s[3])]
+        events.emit("job_submitted", path=path, entry="cli",
+                    replica_id="", job_id="", tenant="", idem_key="",
+                    cache_salt=cas.cache_salt(cfg), shape=shape_hint,
+                    bucket=shape_bucket_label(shape_hint))
+    with profile_trace(cfg.trace_dir, device=device), \
+            events.span("clean_archive", path=path, shape=list(archive.data.shape)):
+        out: SurgicalOutput = SurgicalCleaner(cfg, device=device).clean(
+            archive, progress=progress)
     res = out.result
 
     if not cfg.quiet:
@@ -178,12 +199,16 @@ def process_archive(path: str, cfg: CleanConfig, log_dir: str = ".",
         history=res.history,
         iteration_s=[i.duration_s for i in res.iterations] if res.timed else None,
     )
+    report.quality = quality.quality_summary(out.cleaned.weights,
+                                             termination=res.termination)
     if out.audit is not None:
         report.audit = out.audit
         if not out.audit.get("mask_identical", True):
             # A parity break is never silenced (-q gates chatter only).
             print(f"AUDIT DIVERGENCE {path}: {out.audit.get('n_mask_diffs')} mask "
-                  f"bit(s) differ from the numpy oracle", file=sys.stderr)
+                  f"bit(s) differ from the numpy oracle"
+                  + (f"; repro bundle at {out.audit['bundle']}"
+                     if out.audit.get("bundle") else ""), file=sys.stderr)
         elif not cfg.quiet and "skipped" not in out.audit:
             print("Audit: mask identical to the numpy oracle (max score drift "
                   f"{out.audit.get('max_score_drift', 0) or 0:.2e})")
@@ -299,10 +324,11 @@ def run_sharded_batch(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
         print(f"ERROR cleaning {item.path}: {item.error}", file=sys.stderr)
         reports[i] = ArchiveReport(path=item.path, out_path=None, error=item.error)
 
-    if _auto_stream(paths, cfg):
-        items = clean_directory_streaming(paths, cfg, mesh=mesh, on_item=emit_item)
-    else:
-        items = clean_directory_batch(paths, cfg, mesh=mesh)
+    with profile_trace(cfg.trace_dir, device=device):
+        if _auto_stream(paths, cfg):
+            items = clean_directory_streaming(paths, cfg, mesh=mesh, on_item=emit_item)
+        else:
+            items = clean_directory_batch(paths, cfg, mesh=mesh)
     for i, item in enumerate(items):
         if i not in reports:  # the all-at-once route, and failed loads when streaming
             emit_item(i, item)
@@ -358,7 +384,8 @@ def run_sweep(paths: list[str], cfg: CleanConfig, pairs: list[tuple[float, float
     for path in paths:
         try:
             D, w0 = preprocess(get_io(path).load(path))
-            points = sweep_thresholds(D, w0, cfg, pairs, device=device)
+            with profile_trace(cfg.trace_dir, device=device):
+                points = sweep_thresholds(D, w0, cfg, pairs, device=device)
             print(f"Sweep {path} ({len(points)} threshold pairs):")
             print(format_table(points))
             out = f"{path}_sweep.npz"

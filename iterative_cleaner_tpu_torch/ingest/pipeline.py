@@ -30,6 +30,9 @@ has completed.  The device slabs are allocated once, never per block on the
 side stream, so the caching allocator cannot hand a slab's memory to
 another stream while it is still read.  The host cube is only ever read.
 
+Each pass observes the ``ingest_upload`` phase (the stager's load time)
+and, when the consumer waited, ``ingest_stall`` in ``obs.tracing``.
+
 Determinism: the stager changes when bytes move, never their values or the
 order the consumer sees blocks in.  ``ICT_INGEST_DEPTH=1`` reverts to the
 serial in-line path.
@@ -45,6 +48,8 @@ from typing import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
+
+from iterative_cleaner_tpu_torch.obs import tracing
 
 #: Default staging depth: current block computing + next block uploading.
 DEFAULT_DEPTH = 2
@@ -135,6 +140,8 @@ class BlockStager:
         self.depth = stream_depth() if depth is None else max(1, int(depth))
         self.last_wait_s = 0.0  # this block's get-wait, read by stream_map
         self.serial = False     # which path __iter__ took
+        self.upload_busy_s = 0.0  # this pass's load time (stager thread)
+        self.stall_s = 0.0        # this pass's critical-path wait
         self._credits = threading.Semaphore(self.depth)
         self._stop = threading.Event()
 
@@ -152,6 +159,8 @@ class BlockStager:
                 t0 = time.perf_counter()
                 blk = self._load(lo, hi)
                 dt = time.perf_counter() - t0
+                self.upload_busy_s += dt
+                self.stall_s += dt
                 _note(blocks=1, serial=1, nbytes=_nbytes(blk), upload_s=dt, stall_s=dt)
                 yield (lo, hi), blk
             return
@@ -166,7 +175,9 @@ class BlockStager:
                         return
                     t0 = time.perf_counter()
                     blk = self._load(lo, hi)
-                    _note(blocks=1, nbytes=_nbytes(blk), upload_s=time.perf_counter() - t0)
+                    dt = time.perf_counter() - t0
+                    self.upload_busy_s += dt
+                    _note(blocks=1, nbytes=_nbytes(blk), upload_s=dt)
                     q.put(((lo, hi), blk))
             except BaseException as exc:  # noqa: BLE001 — re-raised consumer-side
                 q.put(_Failure(exc))
@@ -223,11 +234,17 @@ def stream_map(
                 # This block's get-wait ran while the previous block's
                 # compute was still in flight (the sync right after shows
                 # how much was left); only the surplus cost wall clock.
-                _note(stall_s=max(0.0, get_wait - sync_s))
+                stall = max(0.0, get_wait - sync_s)
+                stager.stall_s += stall
+                _note(stall_s=stall)
         outs.append(out)
         prev = out
     if prev is not unset:
         sync(prev)
+    # One phase observation per pass (not per block), as in the JAX package.
+    tracing.observe_phase("ingest_upload", stager.upload_busy_s)
+    if stager.stall_s:
+        tracing.observe_phase("ingest_stall", stager.stall_s)
     return outs
 
 

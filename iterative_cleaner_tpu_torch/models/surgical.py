@@ -6,7 +6,9 @@ archive.  While the host preprocesses, a warm-up thread
 (``backends/torch_backend.start_precompile``) loads the kernel library and
 runs one dummy step of the route on a zero cube of the real shape.
 ``--audit`` replays the same preprocessed inputs through the port's copy of
-the numpy oracle and compares the final masks.
+the numpy oracle and compares the final masks and the scores
+(``obs/audit.run_audit``); a divergence writes a repro bundle under
+``obs.audit.default_repro_dir()``.
 """
 
 from __future__ import annotations
@@ -24,10 +26,6 @@ from iterative_cleaner_tpu_torch.core.cleaner import (
 )
 from iterative_cleaner_tpu_torch.io.base import STATE_INTENSITY, Archive
 from iterative_cleaner_tpu_torch.ops.preprocess import preprocess, pscrunch, redisperse_cube
-
-#: Documented score envelope between routes (unit-floored relative drift).
-AUDIT_DRIFT_BOUND = 5e-5
-
 
 @dataclass
 class SurgicalOutput:
@@ -62,29 +60,6 @@ def finalize_weights(weights: np.ndarray, cfg: CleanConfig):
     if cfg.bad_chan != 1 or cfg.bad_subint != 1:
         return find_bad_parts(weights, cfg)
     return weights, 0, 0
-
-
-def run_audit(D, w0, cfg: CleanConfig, weights_served, scores_served=None) -> dict:
-    """Replay the clean through the numpy oracle and compare the final
-    masks (and, given ``scores_served``, the last iteration's scores:
-    relative drift above |score| = 1, absolute below)."""
-    res_np = clean_cube(D, w0, cfg.replace(backend="numpy", kernel=None, fused=False,
-                                           chunk_block=0, audit=False))
-    oracle_w, _, _ = finalize_weights(res_np.weights, cfg)
-    n_diffs = int(np.sum(np.asarray(weights_served) != oracle_w))
-    record = {"mask_identical": n_diffs == 0, "n_mask_diffs": n_diffs,
-              "oracle_loops": int(res_np.loops), "max_score_drift": None}
-    if scores_served is not None and res_np.test_results is not None:
-        a = np.asarray(scores_served, np.float64)
-        b = np.asarray(res_np.test_results, np.float64)
-        fin = np.isfinite(a) & np.isfinite(b)
-        record["score_finite_mismatch"] = int(np.sum(np.isfinite(a) != np.isfinite(b)))
-        record["max_score_drift"] = float(
-            np.max(np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), 1.0))
-        ) if fin.any() else 0.0
-        record["drift_within_bound"] = (record["score_finite_mismatch"] == 0 and
-                                        record["max_score_drift"] <= AUDIT_DRIFT_BOUND)
-    return record
 
 
 class SurgicalCleaner:
@@ -128,7 +103,21 @@ class SurgicalCleaner:
 
         audit_rec = None
         if cfg.audit and cfg.backend != "numpy":
-            audit_rec = run_audit(D, w0, cfg, final_w, scores_served=result.test_results)
+            # The audit never alters the outputs already computed above.
+            from iterative_cleaner_tpu_torch.obs import audit as obs_audit
+
+            route = ("fused" if cfg.fused else
+                     "chunked" if cfg.chunk_block else "stepwise")
+            audit_rec, oracle_w = obs_audit.run_audit(
+                D, w0, cfg, final_w, scores_served=result.test_results,
+                route=route)
+            if not audit_rec["mask_identical"]:
+                audit_rec["bundle"] = obs_audit.write_repro_bundle(
+                    obs_audit.default_repro_dir(), D=D, w0=w0, cfg=cfg,
+                    reason=f"--audit divergence on the {route} route",
+                    weights_served=final_w, weights_oracle=oracle_w,
+                    scores_served=result.test_results, route=route,
+                    record=audit_rec)
         elif cfg.audit:
             audit_rec = {"skipped": "backend is the numpy oracle"}
 

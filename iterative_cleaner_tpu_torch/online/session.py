@@ -19,9 +19,11 @@ produces its real mask at :meth:`finalize`, which runs the canonical
 pipeline on the completed cube — the normal offline path on the assembled
 archive, identical to the numpy oracle by the repo's core invariant.
 
-The JAX session's compile-budget accounting has no counterpart (PyTorch
-does not compile per shape), and its phase counters and ``online_block``
-events wait for the observability slice (ROADMAP.md queue A).
+Each ingest is timed into the ``online_block`` phase (and its pass into
+``online_pass``), counts ``online_blocks_ingested`` and
+``online_zap_alerts``, and emits an ``online_block`` event, as the JAX
+session does.  The JAX session's compile-budget accounting has no
+counterpart (PyTorch does not compile per shape).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 
 from iterative_cleaner_tpu_torch.config import CleanConfig
 from iterative_cleaner_tpu_torch.core.cleaner import LoopState
+from iterative_cleaner_tpu_torch.obs import events, tracing
 from iterative_cleaner_tpu_torch.online.state import CleanState, SessionMeta
 
 #: Alert payloads list at most this many newly-zapped (subint, channel)
@@ -107,18 +110,31 @@ class OnlineSession:
         block can simply be resubmitted."""
         if self.finalized:
             raise ValueError("session already finalized")
-        t0 = time.perf_counter()
-        lo = self._append(data, weights)
-        hi = self.state.nsub
-        try:
-            alert = self._provisional_pass(lo, hi)
-        except Exception:
-            # Rows beyond nsub are inert; the capacity stays for the retry.
-            # prov_w was not touched: _provisional_pass assigns it only on
-            # success.
-            self.state.nsub = lo
-            raise
-        alert.latency_s = time.perf_counter() - t0
+        with tracing.phase("online_block"):
+            t0 = time.perf_counter()
+            lo = self._append(data, weights)
+            hi = self.state.nsub
+            try:
+                with tracing.phase("online_pass"):
+                    alert = self._provisional_pass(lo, hi)
+            except Exception:
+                # Rows beyond nsub are inert; the capacity stays for the
+                # retry.  prov_w was not touched: _provisional_pass assigns
+                # it only on success.
+                self.state.nsub = lo
+                raise
+            alert.latency_s = time.perf_counter() - t0
+        tracing.count("online_blocks_ingested")
+        tracing.count("online_zap_alerts", alert.n_new_zaps)
+        if events.active():
+            # Inherits the trace context of the caller (the --follow driver
+            # runs under the CLI's).
+            events.emit("online_block", block_index=alert.block_index,
+                        subint_lo=alert.subint_lo, subint_hi=alert.subint_hi,
+                        n_new_zaps=alert.n_new_zaps,
+                        provisional_rfi_frac=round(alert.provisional_rfi_frac, 6),
+                        pass_converged=alert.pass_converged,
+                        latency_s=round(alert.latency_s, 6))
         self.blocks_ingested += 1
         self.alerts.append(alert)
         return alert

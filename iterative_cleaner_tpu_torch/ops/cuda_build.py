@@ -6,7 +6,10 @@ Each ``csrc/<stem>.cu`` has a plain C interface.  It is compiled with
 includes PyTorch's headers.  The build happens at first use, never at
 import, into ``iterative_cleaner_tpu_torch/_build/`` (git-ignored), keyed
 by a hash of the source and the flags, so an unchanged source is built once
-per checkout.  A failed build raises with the compiler's output.
+per checkout.  A failed build raises with the compiler's output.  Each build
+is accounted in ``obs.tracing`` (``observe_kernel_build``: the
+``kernel_build`` phase and ``compiles_total`` / ``compile_seconds_total``),
+the port's counterpart of the JAX package's compile accounting.
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from iterative_cleaner_tpu_torch.obs import tracing
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -66,7 +72,9 @@ def build(stem: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    tracing.observe_kernel_build(time.perf_counter() - t0)
     if proc.returncode != 0:
         raise RuntimeError(
             f"building {stem}.cu failed (nvcc exit {proc.returncode}):\n"

@@ -32,11 +32,10 @@ per pair (the cube counted once per pair, though the pairs share it).
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from iterative_cleaner_tpu_torch.ingest.pipeline import stream_depth
+from iterative_cleaner_tpu_torch.obs import memory as obs_memory
 
 #: Peak device bytes of one clean in cube-sized units, per route, fitted by
 #: chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W (2.3125 and 6.0000,
@@ -61,17 +60,10 @@ HBM_USABLE_FRACTION = 0.9
 
 
 def device_memory_bytes(device=None) -> int | None:
-    """Memory capacity of ``device``: the ``ICT_HBM_BYTES`` override first
-    (tests, and hosts where the runtime misreports), then the card's total
-    from ``torch.cuda.mem_get_info``; None on the CPU (no limit to route
-    by)."""
-    env = os.environ.get("ICT_HBM_BYTES")
-    if env:
-        return int(env)
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
-        return None
-    return int(torch.cuda.mem_get_info(dev)[1])
+    """Memory capacity of ``device`` — ``obs.memory.device_memory_bytes``,
+    the one owner of the card's memory reads: the ``ICT_HBM_BYTES``
+    override first, then the card's total; None on the CPU."""
+    return obs_memory.device_memory_bytes(device)
 
 
 def _route(use_kernel: bool) -> str:

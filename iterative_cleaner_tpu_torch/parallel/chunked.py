@@ -7,12 +7,11 @@ host memory and ``(block, nchan, nbin)`` subint slabs stream through the
 card inside each iteration, in two passes built from the same functions as
 the in-memory route, so the semantics cannot drift:
 
-1. **template pass** — each block's weighted scrunch
-   (:func:`..ops.template.build_template`), accumulated on the device in
-   block order.  A single-block stream has no reordering and is bit-exact
-   with the in-memory route; more blocks reorder the f32 sum (masks are
-   insensitive to the few-ulp wobble; scores stay inside the ~5e-5
-   envelope).
+1. **template pass** — the weighted scrunch
+   (:func:`..ops.template.build_template`) continued block by block in
+   block order: each block's sum starts from the running template, so the
+   streamed sum is the whole-cube sum in the oracle's order, bit for bit
+   (the JAX package adds per-block sums, which reorders the f32 sum).
 2. **stats pass** — per block the CUDA fit/moments kernel plus the FFT
    diagnostic, or the plain route (fit, subtract, weight, the four
    diagnostics): per-profile math, identical to the in-memory route.  Only
@@ -101,13 +100,13 @@ class ChunkedTorchCleaner:
         return self.uploader.stream(self._blocks(), compute, self._depth)
 
     def _template(self, w_prev: torch.Tensor) -> torch.Tensor:
-        """Pass 1: the template accumulated over the streamed blocks, in
-        block order (the same values as a serial pass)."""
+        """Pass 1: the template continued over the streamed blocks, in
+        block order (the same values as the in-memory build)."""
         self.template_passes += 1
         acc = [torch.zeros(self._D.shape[-1], dtype=torch.float32, device=self.device)]
 
         def accumulate(lo, hi, Dblk):
-            acc[0] = acc[0] + build_template(Dblk, w_prev[lo:hi])
+            acc[0] = build_template(Dblk, w_prev[lo:hi], init=acc[0])
 
         self._stream(accumulate)
         return acc[0]

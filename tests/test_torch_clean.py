@@ -305,13 +305,19 @@ class TestConfigAndState:
                                   max_iter=3, pulse_region=(0.5, 10.0, 20.0),
                                   incremental_template=False)
 
-    @pytest.mark.parametrize("field,value", [
-        ("x64", True), ("trace_dir", "t"), ("print_zap", True)])
+    @pytest.mark.parametrize("field,value", [("x64", True), ("print_zap", True)])
     def test_unported_options_raise(self, field, value):
         fields = dataclasses.asdict(JaxConfig(backend="jax"))
         fields[field] = value
         with pytest.raises(ValueError, match="not yet ported"):
             config_from_jax(fields)
+
+    def test_trace_dir_maps_across(self):
+        # The directory of a jax.profiler capture names the port's
+        # torch.profiler capture.
+        jc = JaxConfig(backend="jax", trace_dir="t")
+        assert config_from_jax(dataclasses.asdict(jc)) == CleanConfig(
+            backend="torch", trace_dir="t")
 
     @pytest.mark.parametrize("field,value", [("fused", True), ("chunk_block", 3),
                                              ("auto_shard", False), ("sharded_batch", True),
@@ -462,9 +468,12 @@ class TestImportHygiene:
                     f"{path.name}:{node.lineno} imports {name}"
 
     def test_cli_import_leaves_no_jax_in_sys_modules(self):
-        code = ("import sys, iterative_cleaner_tpu_torch.cli, "
-                "iterative_cleaner_tpu_torch.driver, "
-                "iterative_cleaner_tpu_torch.backends.torch_backend\n"
+        # Every module of the port, the CLI's among them.
+        mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__") for p in _py_files() if p.name not in ("chip_smoke.py", "__main__.py"))
+        assert "iterative_cleaner_tpu_torch.obs.profiling" in mods
+        code = ("import importlib, sys\n"
+                f"for m in {mods!r}:\n    importlib.import_module(m)\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'iterative_cleaner_tpu')]\n"
                 "print(bad)\nsys.exit(1 if bad else 0)\n")
