@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py      # needs one CUDA card; about 11 minutes on an H100
+    python3 chip_smoke.py      # needs one CUDA card; about 9 minutes on an H100
 
 Phases, in order, each with its seconds; any failure raises and the script
 exits non-zero:
@@ -18,11 +18,17 @@ exits non-zero:
    region, a zero template and pre-zapped profiles; the launch over a
    leading archive axis at ragged shapes and at 8 x 256 x 1024 x 1024, each
    archive bit-identical to the 3-D launch on it alone.  ``ordered_template``
-   bit for bit at ragged shapes (zero weights, an inf and a NaN sample), a
-   sum continued block by block, a batch, and at the main path's shape.
-   Each is timed against its plain version, the least time the card could
-   take (bytes or operations over its published peak) and, for the
-   template, cuBLAS's matrix-vector product;
+   bit for bit on both load paths (16-byte copies; 4-byte copies where the
+   pitch or the base is not 16-byte aligned) at ragged shapes (zero weights,
+   an inf and a NaN sample, fewer profiles than one stage, a partial bin
+   group), a sum continued block by block (from an unaligned base too), a
+   batch, and the sweep's stride-0 pair axis in one launch; the chain probe
+   (the card's time per dependent float32 add).  Each is timed against its
+   plain version, the least time the card could take (bytes or operations
+   over its published peak; for the template also the chain of dependent
+   adds) and, for the template, cuBLAS's matrix-vector product; the
+   template also on the online slab (32 x 1024 x 1024), over 8 LOFAR cubes
+   and over the sweep's 9 pairs;
 4. main path — writes the seed-42 synthetic 256 x 1024 x 1024 archive,
    cleans it through ``iterative_cleaner_tpu_torch.cli.main`` with the
    defaults (torch backend, cuda, auto kernel, incremental template, the
@@ -34,7 +40,8 @@ exits non-zero:
    envelope; the drift split by layer (kernel or plain route, the FFT
    diagnostic in pieces or as one transform, the template in the oracle's
    order or as one matrix-vector product, TF32's flags); times each device
-   layer of one iteration;
+   layer of one iteration, beside the times with a thread per template
+   chain;
 5. obs — on phase 4's archive, ``cli.main`` with ``--telemetry``,
    ``--trace``, ``--audit`` and ``--report`` under ``ICT_FORENSICS=1``: the
    event log (the run's spans, ``job_submitted``, ``clean_route``, one
@@ -85,8 +92,9 @@ exits non-zero:
    grid (chanthresh, subintthresh in {4, 5, 6}) in one dispatch: every
    point's mask, loops and converged equal the solo clean with its
    thresholds, (5, 5) the oracle's, no ``fused_fit_moments`` launch (the
-   plain route, as in the JAX package), the peak under the sizing's
-   estimate, the grid's wall beside the 9 solo walls; the same grid on a
+   plain route, as in the JAX package), one ``ordered_template`` launch per
+   batched iteration (the pair axis in one launch), the peak under the
+   sizing's estimate, the grid's wall beside the 9 solo walls; the same grid on a
    20 GB ``ICT_HBM_BYTES`` budget (dispatches of 2, 2, 2, 2, 1) and on 2 GB
    (beneath one pair: solo cleans through the chunked cleaner), the same
    points; ``cli.main --sweep`` on a 32 x 1024 x 1024 archive, its
@@ -103,7 +111,9 @@ exits non-zero:
    complete file;
 14. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
-   printed, where the host cannot hold ~2.5 cubes); the kernel over the
+   printed, where the host cannot hold ~2.5 cubes); the template over the
+   whole cube in one launch, timed, against its sum continued over blocks
+   whose offsets fit in 31 bits, bit for bit; the kernel over the
    whole cube (4.3e9 elements) against its plain version on slabs at its
    start, across element 2^31 and at its end; then, from host memory, the
    automatic route on this card and on a 32 GB budget (``ICT_HBM_BYTES``,
@@ -488,66 +498,147 @@ def _same_floats(a, b) -> bool:
             and bool(((a.view(torch.int32) == b.view(torch.int32)) | nan).all()))
 
 
-def _template_bound_ms(shape) -> tuple[float, str, float]:
-    """(bound_ms, bound_by, bytes) of one ordered template over ``shape``:
-    D read once (4 B per element), the weights (4 B per profile) and the
-    template written (4 B per bin), against 2 f32 operations per element
-    (a multiply and an add)."""
+def _template_bound_ms(shape, narch=1, reads=None, t_add_ms=None) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, bytes) of one ordered template over ``narch``
+    archives of ``shape``: the cube read ``reads`` times (``narch`` by
+    default; once for the sweep's pairs over one cube), 4 B per element, the
+    weights (4 B per profile and archive) and the templates written (4 B per
+    bin and archive), against 2 f32 operations per element and archive (a
+    multiply and an add) — and, given the card's time per dependent add
+    ``t_add_ms``, the chain: each bin's nprof adds one after another (the
+    archives' chains run side by side), bound_by ``"chain"`` where it wins."""
     nsub, nchan, nbin = shape
     n, p = nsub * nchan * nbin, nsub * nchan
-    bytes_moved = 4 * n + 4 * p + 4 * nbin
-    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 2 * n / PEAK_F32_FLOPS * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_moved
+    bytes_moved = 4 * n * (narch if reads is None else reads) + 4 * p * narch + 4 * nbin * narch
+    times = {"bytes": bytes_moved / PEAK_BYTES_PER_S * 1e3,
+             "operations": 2 * n * narch / PEAK_F32_FLOPS * 1e3}
+    if t_add_ms is not None:
+        times["chain"] = p * t_add_ms
+    by = max(times, key=times.get)
+    return times[by], by, bytes_moved
+
+
+def _chain_probe() -> tuple[float, float, str]:
+    """The card's time per dependent float32 add (one warp, 2^24 adds from
+    registers; the second of two runs), its SM cycles per add and the SM
+    clock nvidia-smi reads right after."""
+    from iterative_cleaner_tpu_torch.ops import template as tp
+
+    n_adds = 1 << 24
+    tp.chain_probe(n_adds)
+    ms, cycles = tp.chain_probe(n_adds)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.strip()
+    return ms / n_adds, cycles / n_adds, clock
+
+
+def _template_case(name, D, w, *, path, cut=None) -> None:
+    """The kernel on ``D``/``w`` against its plain version bit for bit, on
+    the load path ``path`` (as ``launch_plan`` picks it); continued from
+    ``D[:cut]`` (its own path on ``D[cut:]``) and batched with a second
+    archive, each the same."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.ops import template as tp
+
+    check(tp.plan_for(D, w)[0].path == path, f"ordered_template {name}: not the {path} path")
+    got = tp.build_template(D, w)
+    torch.cuda.synchronize()
+    want = tp.build_template_plain(D, w)
+    check(_same_floats(got, want), f"ordered_template {name}: kernel != plain")
+    cut = D.shape[0] // 2 if cut is None else cut
+    rest = tp.plan_for(D[cut:], w[cut:])[0].path
+    cont = tp.build_template(D[cut:], w[cut:], init=tp.build_template(D[:cut], w[:cut]))
+    check(_same_floats(cont, got), f"ordered_template {name}: the continued sum differs")
+    Db, wb = torch.stack([D, -2 * D]), torch.stack([w, w.flip(0)])
+    tb = tp.build_template(Db, wb)
+    for j in range(2):
+        check(_same_floats(tb[j], tp.build_template(Db[j], wb[j])),
+              f"ordered_template {name}: batched archive {j} != alone")
+    log(f"  ordered_template {name} ({path} path, {D.shape[0] * D.shape[1]} profiles): "
+        f"kernel == plain bit for bit; continued from subint {cut} ({rest} path there) and "
+        "batched (2 archives) the same")
 
 
 def phase_template_parity():
     """The template kernel ordered_template (``ops/template.build_template``)
-    vs its plain PyTorch version on the card, bit
-    for bit: ragged shapes, zero weights, non-finite samples, a running sum
-    continued block by block (the chunked route) and a batch over a leading
-    archive axis; then at the main path's shape, timed against the plain
-    version, cuBLAS's matrix-vector product (the same sum in another order)
-    and the bound."""
+    vs its plain PyTorch version on the card, bit for bit: ragged shapes on
+    both load paths, zero weights, non-finite samples, fewer profiles than
+    one stage, a running sum continued block by block (the chunked route;
+    from an unaligned base too), a batch over a leading archive axis and the
+    sweep's stride-0 pair axis in one launch; the chain probe (the card's
+    time per dependent add); then at the main path's shape, over 8 such
+    cubes and over the sweep's 9 pairs, timed against the plain version,
+    cuBLAS's matrix-vector product (the same sum in another order) and the
+    bound (bytes, operations, the chain)."""
     import torch
 
     from iterative_cleaner_tpu_torch.ops import template as tp
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
-    cases = [("5x33x100", (5, 33, 100)), ("8x64x257", (8, 64, 257)),
-             ("3x7x31", (3, 7, 31)), ("16x32x4096", (16, 32, 4096)),
-             ("32x1024x1024 (a chunked block)", (32, 1024, 1024))]
+    rows = tp.TEMPLATE_ROWS_PER_STAGE
+    # (name, shape, load path, continuation cut, the cube's offset in floats)
+    cases = [("5x33x100 (a partial last bin group)", (5, 33, 100), "aligned", None, 0),
+             ("8x64x257", (8, 64, 257), "unaligned", None, 0),
+             ("3x7x31", (3, 7, 31), "unaligned", None, 0),
+             ("16x32x4096", (16, 32, 4096), "aligned", None, 0),
+             ("32x1024x1024 (a chunked block)", (32, 1024, 1024), "aligned", None, 0),
+             (f"2x50x64 (fewer profiles than a stage of {rows})", (2, 50, 64), "aligned", None,
+              0),
+             ("3x171x48 (two stages and a row)", (3, 171, 48), "aligned", None, 0),
+             ("6x97x31 (continued from an unaligned base)", (6, 97, 31), "unaligned", 3, 0),
+             ("4x40x64 at an unaligned base", (4, 40, 64), "unaligned", None, 1),
+             ("4x64x1024", (4, 64, 1024), "aligned", None, 0)]
     tp.build_template.launches = 0
-    for k, (name, shape) in enumerate(cases):
-        D = torch.randn(shape, generator=gen, device="cuda") * 3
+    for k, (name, shape, path, cut, offset) in enumerate(cases):
+        n = shape[0] * shape[1] * shape[2]
+        D = (torch.randn(n + offset, generator=gen, device="cuda") * 3)[offset:].view(shape)
         w = torch.rand(shape[:2], generator=gen, device="cuda")
         w[torch.rand(shape[:2], generator=gen, device="cuda") < 0.2] = 0.0
         if k == 1:   # an inf and a NaN sample, as the oracle meets them
             D[1, 2, 7], D[3, 4, 9] = float("inf"), float("nan")
-        got = tp.build_template(D, w)
-        torch.cuda.synchronize()
-        want = tp.build_template_plain(D, w)
-        check(_same_floats(got, want), f"ordered_template {name}: kernel != plain")
-        cut = shape[0] // 2
-        cont = tp.build_template(D[cut:], w[cut:], init=tp.build_template(D[:cut], w[:cut]))
-        check(_same_floats(cont, got), f"ordered_template {name}: the continued sum differs")
-        Db, wb = torch.stack([D, -2 * D]), torch.stack([w, w.flip(0)])
-        tb = tp.build_template(Db, wb)
-        for j in range(2):
-            check(_same_floats(tb[j], tp.build_template(Db[j], wb[j])),
-                  f"ordered_template {name}: batched archive {j} != alone")
-        log(f"  ordered_template {name}: kernel == plain bit for bit; continued in two "
-            f"blocks and batched (2 archives) the same")
-        del D, w, got, want, cont, Db, wb, tb
+        if cut is not None:
+            check(D[cut:].data_ptr() % 16 != 0, f"{name}: the continuation's base is aligned")
+        _template_case(name, D, w, path=path, cut=cut)
+        del D, w
     check(tp.build_template.launches == 6 * len(cases), "parity launches were not counted")
+
+    # The sweep's pair axis: one cube broadcast over 9 archives (stride 0),
+    # 9 weight maps, one launch; then the first iteration's broadcast
+    # weights as well.
+    D = torch.randn((16, 64, 1024), generator=gen, device="cuda")
+    wb = torch.rand((9, 16, 64), generator=gen, device="cuda")
+    Db = D.expand(9, *D.shape)
+    plan = tp.plan_for(Db, wb)[0]
+    check(plan.d_arch_stride == 0 and plan.blocks == 9 * 1024 // plan.bins_per_block,
+          f"the stride-0 plan: {plan}")
+    before = tp.build_template.launches
+    tb = tp.build_templates(Db, wb)
+    check(tp.build_template.launches == before + 1, "the stride-0 batch was not one launch")
+    for j in range(9):
+        check(_same_floats(tb[j], tp.build_template(D, wb[j])), f"stride-0 archive {j} != alone")
+        check(_same_floats(tb[j], tp.build_template_plain(D, wb[j])),
+              f"stride-0 archive {j} != plain")
+    w0 = wb[0].expand(9, *wb.shape[1:])
+    check(tp.plan_for(Db, w0)[0].w_arch_stride == 0, "the broadcast weights were copied")
+    t0 = tp.build_templates(Db, w0)
+    check(all(_same_floats(t0[j], tb[0]) for j in range(9)), "broadcast weights differ")
+    log("  ordered_template over the sweep's stride-0 pair axis (9 x 16x64x1024, one launch): "
+        "each archive == the kernel on it alone == plain, bit for bit; with the weights "
+        "broadcast too (stride 0) the same")
+    del D, wb, Db, tb, w0, t0
     torch.cuda.empty_cache()
+
+    t_add_ms, cycles, clock = _chain_probe()
+    log(f"chain probe: {t_add_ms * 1e6:.4f} ns ({cycles:.3f} SM cycles) per dependent "
+        f"float32 add; SM clock read after it {clock}")
 
     nsub, nchan, nbin = LOFAR
     D = torch.randn(LOFAR, generator=gen, device="cuda")
     w = 0.8 + 0.4 * torch.rand((nsub, nchan), generator=gen, device="cuda")
     w[torch.rand((nsub, nchan), generator=gen, device="cuda") < 0.01] = 0.0
-    kernel_ms = _time_ms(lambda: tp.build_template(D, w), runs=10)
+    kernel_ms = _time_ms(lambda: tp.build_template(D, w), runs=20)
     library_ms = _time_ms(lambda: torch.matmul(w.reshape(-1), D.reshape(-1, nbin)), runs=20)
     got = tp.build_template(D, w)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -560,12 +651,49 @@ def phase_template_parity():
     lib = torch.matmul(w.reshape(-1), D.reshape(-1, nbin))
     rel = float(((lib - got).abs() / got.abs().clamp_min(1e-30)).max())
     bound_ms, bound_by, bytes_moved = _template_bound_ms(LOFAR)
-    log(f"ordered_template at {LOFAR}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"(one call: {nsub * nchan} ordered adds) library_ms={library_ms:.4f} (cuBLAS "
-        f"matrix-vector product, another order: max relative difference {rel:.3e}) "
-        f"bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB, {bound_by}); kernel == plain "
-        f"bit for bit")
-    del D, w, got, want, lib
+    floor_ms, floor_by, _ = _template_bound_ms(LOFAR, t_add_ms=t_add_ms)
+    chain_ms = nsub * nchan * t_add_ms
+    log(f"ordered_template at {LOFAR}: kernel_ms={kernel_ms:.4f} (a thread per chain: 9.9001) "
+        f"plain_ms={plain_ms:.4f} (one call: {nsub * nchan} ordered adds) "
+        f"library_ms={library_ms:.4f} (cuBLAS matrix-vector product, another order: max "
+        f"relative difference {rel:.3e}) bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB, "
+        f"{bound_by}); chain floor {chain_ms:.4f} ms, so the bound with the chain "
+        f"{floor_ms:.4f} ({floor_by}; the kernel at {floor_ms / kernel_ms:.1%} of it); "
+        "kernel == plain bit for bit")
+    del got, want, lib
+
+    # The online session's slab (its first 32 subints: a contiguous slice).
+    Ds, ws = D[:ONLINE_SLAB[0]], w[:ONLINE_SLAB[0]]
+    slab_ms = _time_ms(lambda: tp.build_template(Ds, ws), runs=50)
+    sb, sb_by, snb = _template_bound_ms(ONLINE_SLAB)
+    sf, sf_by, _ = _template_bound_ms(ONLINE_SLAB, t_add_ms=t_add_ms)
+    log(f"ordered_template at {ONLINE_SLAB} (the online slab): kernel_ms={slab_ms:.4f} "
+        f"bound_ms={sb:.4f} ({snb / 1e9:.3f} GB, {sb_by}); with the chain {sf:.4f} ({sf_by})")
+    timed = {"online_slab": {"shape": list(ONLINE_SLAB), "ms": slab_ms, "bound_ms": sb,
+                             "bound_by": sb_by, "floor_ms": sf, "floor_by": sf_by}}
+
+    # Over 8 such cubes (the batch phase), and the sweep's 9 pairs of one cube.
+    Db = torch.randn((8, *LOFAR), generator=gen, device="cuda")
+    wb = 0.8 + 0.4 * torch.rand((8, nsub, nchan), generator=gen, device="cuda")
+    batch_ms = _time_ms(lambda: tp.build_templates(Db, wb), runs=10)
+    tb = tp.build_templates(Db, wb)
+    check(_same_floats(tb[7], tp.build_template(Db[7], wb[7])), "batch archive 7 != alone")
+    del Db, tb
+    wp = torch.rand((9, nsub, nchan), generator=gen, device="cuda")
+    Dp = D.expand(9, *LOFAR)
+    sweep_ms = _time_ms(lambda: tp.build_templates(Dp, wp), runs=10)
+    tb = tp.build_templates(Dp, wp)
+    check(_same_floats(tb[4], tp.build_template(D, wp[4])), "sweep pair 4 != alone")
+    for key, ms, narch, reads in (("batch8", batch_ms, 8, 8), ("sweep9", sweep_ms, 9, 1)):
+        bb, bb_by, nbytes = _template_bound_ms(LOFAR, narch, reads)
+        fb, fb_by, _ = _template_bound_ms(LOFAR, narch, reads, t_add_ms)
+        timed[key] = {"shape": [narch, *LOFAR], "ms": ms, "bound_ms": bb, "bound_by": bb_by,
+                      "floor_ms": fb, "floor_by": fb_by}
+        layout = "one cube, stride 0" if reads == 1 else "contiguous"
+        log(f"ordered_template over {narch} x {LOFAR} ({layout}, one launch): "
+            f"kernel_ms={ms:.4f} bound_ms={bb:.4f} ({nbytes / 1e9:.3f} GB, {bb_by}); "
+            f"with the chain {fb:.4f} ({fb_by})")
+    del D, w, Ds, ws, wp, Dp, tb, wb
     torch.cuda.empty_cache()
     return {
         "name": "ordered_template",
@@ -580,6 +708,11 @@ def phase_template_parity():
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "chain_floor_ms": chain_ms,
+        "t_add_ns": t_add_ms * 1e6,
+        "bound_with_chain_ms": floor_ms,
+        "bound_with_chain_by": floor_by,
+        **timed,
     }
 
 
@@ -800,8 +933,12 @@ def layer_times(D, w0, served) -> None:
         "fft diagnostic": lambda: fft_diagnostic(c),
         "robust scalers": lambda: scale_and_combine(s, m, p, f, vt, 5.0, 5.0),
     }
+    before = {"dense template": 9.8993, "incremental template": 11.2551,
+              "fused_fit_moments kernel": 0.9846, "fft diagnostic": 2.5480,
+              "robust scalers": 5.1233}   # this phase with a thread per template chain
     for name, fn in parts.items():
-        log(f"  layer {name}: {_time_ms(fn, runs=10):.4f} ms")
+        log(f"  layer {name}: {_time_ms(fn, runs=10):.4f} ms (a thread per template chain: "
+            f"{before[name]:.4f} ms)")
     del Dt, wt, vt, new_w, t, c, m, s, p, f
     torch.cuda.empty_cache()
 
@@ -1799,6 +1936,12 @@ def _same_points(got, want) -> bool:
         and np.array_equal(p.weights, q.weights) for p, q in zip(got, want))
 
 
+def _dispatch_iterations(dispatches) -> list[int]:
+    """The batched iterations each recorded ``batched_fused_clean`` call
+    ran: the largest of its archives' iteration counts."""
+    return [int(out[4].max()) for out in dispatches]
+
+
 def _sweep_library(lofar) -> dict:
     """The 3 x 3 grid at LOFAR in one dispatch against the solo cleans, then
     on a budget that chunks it and on one beneath a single pair."""
@@ -1811,6 +1954,7 @@ def _sweep_library(lofar) -> dict:
     from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
     from iterative_cleaner_tpu_torch.models import sweep
     from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops import template as tp
     from iterative_cleaner_tpu_torch.parallel import autoshard, sharded
 
     D, w0, ora = lofar["D"], lofar["w0"], lofar["oracle"]
@@ -1823,22 +1967,29 @@ def _sweep_library(lofar) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     fk.fused_fit_moments.launches = 0
+    t_before = tp.build_template.launches
     with _recording(sharded, "batched_fused_clean") as dispatches:
         t0 = time.perf_counter()
         points = sweep.sweep_thresholds(D, w0, cfg, pairs)
         wall = time.perf_counter() - t0
     launches = fk.fused_fit_moments.launches
+    t_launches = tp.build_template.launches - t_before
     peak = torch.cuda.max_memory_allocated() - base
     check(len(dispatches) == 1, f"the grid took {len(dispatches)} dispatches, not one")
+    iters = _dispatch_iterations(dispatches)
+    check(t_launches == sum(iters), f"the grid launched ordered_template {t_launches} times "
+          f"over {iters} batched iterations: not once per iteration")
     check(launches == 0, f"the sweep launched the kernel {launches} times (it runs the "
           "plain route, as the JAX package's vmapped sweep does)")
     check(peak <= est, f"sweep peak {peak} B exceeds the sizing's {len(pairs)}-pair "
           f"estimate {est} B")
     del dispatches
     log(f"sweep: {len(pairs)} pairs {SWEEP_AXIS} x {SWEEP_AXIS} at {LOFAR} in one dispatch: "
-        f"wall {wall:.4f}s (upload included), peak_device_mem {peak / 1e9:.2f} GB against "
-        f"the estimate {est / 1e9:.2f} GB ({est / len(pairs) / 1e9:.2f} GB per pair), "
-        f"kernel launches {launches}")
+        f"wall {wall:.4f}s (upload included; a template launch per pair: 0.5391s, cuBLAS's "
+        f"template: 0.348s), peak_device_mem "
+        f"{peak / 1e9:.2f} GB against the estimate {est / 1e9:.2f} GB "
+        f"({est / len(pairs) / 1e9:.2f} GB per pair), kernel launches {launches}, "
+        f"ordered_template launches {t_launches} (one per batched iteration: {iters[0]})")
     log("  chanthresh subintthresh: loops converged zapped")
     for p in points:
         log(f"  {p.chanthresh:.0f} {p.subintthresh:.0f}: {p.loops} {p.converged} "
@@ -1878,15 +2029,19 @@ def _sweep_library(lofar) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         fk.fused_fit_moments.launches = 0
+        t_before = tp.build_template.launches
         sharded.batched_fused_clean = sized
         try:
-            with _hbm_budget(budget), _stderr_to(io.StringIO()) as said:
+            with _hbm_budget(budget), _stderr_to(io.StringIO()) as said, \
+                    _recording(sharded, "batched_fused_clean") as dispatches:
                 t0 = time.perf_counter()
                 got = sweep.sweep_thresholds(D, w0, cfg, pairs)
                 wall_b = time.perf_counter() - t0
         finally:
             sharded.batched_fused_clean = real
         n = fk.fused_fit_moments.launches
+        t_n = tp.build_template.launches - t_before
+        iters = _dispatch_iterations(dispatches)
         peak_b = torch.cuda.max_memory_allocated() - base
         usable = budget * autoshard.HBM_USABLE_FRACTION
         check(_same_points(got, points), f"{name}: the points differ from the one dispatch")
@@ -1899,7 +2054,9 @@ def _sweep_library(lofar) -> dict:
             check(f"in chunks of {k}" in said.getvalue(), f"{name}: chunking not announced")
             check(n == 0 and peak_b <= usable, f"{name}: launches {n}, peak {peak_b} B "
                   f"against {usable:.0f} B usable")
-            route = f"dispatches {sizes}"
+            check(t_n == sum(iters), f"{name}: ordered_template launched {t_n} times over "
+                  f"the dispatches' batched iterations {iters}")
+            route = f"dispatches {sizes}, ordered_template once per batched iteration ({t_n})"
         else:
             check(sizes == [] and "even for a single pair" in said.getvalue()
                   and said.getvalue().count("chunked clean:") == len(pairs),
@@ -2281,7 +2438,40 @@ def _north_star_parity(Dt, wt) -> float:
     return max_err
 
 
-def phase_north_star(entry) -> dict:
+def _north_star_template(Dt, wt, tentry) -> None:
+    """The template over the whole cube (4.3e9 elements at full size) in one
+    launch against the same sum continued over blocks of subints whose
+    element offsets fit in 31 bits, bit for bit: the 64-bit offsets without
+    the plain version's ~60 s over 4.2M profiles.  Timed, beside its bound."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.ops.template import build_template
+
+    nsub, nchan, nbin = Dt.shape
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    whole = build_template(Dt, wt)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    blk = (1 << 31) // (nchan * nbin)
+    acc = None
+    for lo in range(0, nsub, blk):
+        acc = build_template(Dt[lo:lo + blk], wt[lo:lo + blk], init=acc)
+    check(_same_floats(whole, acc), "north star: the whole-cube template differs from its "
+          "sum continued over 2^31-element blocks")
+    bound_ms, bound_by, nbytes = _template_bound_ms((nsub, nchan, nbin))
+    floor_ms, floor_by, _ = _template_bound_ms((nsub, nchan, nbin),
+                                               t_add_ms=tentry["t_add_ns"] * 1e-6)
+    log(f"  ordered_template over the whole cube {tuple(Dt.shape)} in one launch: "
+        f"{ms:.4f} ms (bound {bound_ms:.4f} ms, {nbytes / 1e9:.2f} GB, {bound_by}; with the "
+        f"chain {floor_ms:.4f} ms, {floor_by}); == its sum continued over "
+        f"{-(-nsub // blk)} blocks of {blk} subints, bit for bit")
+    tentry["north_star"] = {"shape": [nsub, nchan, nbin], "ms": ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "floor_ms": floor_ms, "floor_by": floor_by}
+
+
+def phase_north_star(entry, tentry) -> dict:
     """BASELINE.json config #5 on one card: the kernel over the whole cube
     against its plain version, then the automatic route on this card and on
     a 32 GB budget (chunked), from host memory."""
@@ -2317,6 +2507,7 @@ def phase_north_star(entry) -> dict:
     Dt, wt = make_preprocessed_cube(*shape, seed=5, rfi=rfi, device="cuda")
     log(f"  made the seeded preprocessed cube {shape} ({Dt.numel() * 4 / 1e9:.2f} GB) on "
         f"the card in {time.perf_counter() - t0:.2f}s")
+    _north_star_template(Dt, wt, tentry)
     err = _north_star_parity(Dt, wt)
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     gc.collect()
@@ -2359,7 +2550,9 @@ def phase_north_star(entry) -> dict:
         log(f"  {name} ({route}): loops={res.loops} converged={res.converged} "
             f"zapped={int((res.weights == 0).sum())} wall={wall:.2f}s "
             f"peak_device_mem={peak / 1e9:.2f} GB launches={launches[name]}; iterations "
-            + ", ".join(f"{i.duration_s:.4f}" for i in res.iterations) + " s")
+            + ", ".join(f"{i.duration_s:.4f}" for i in res.iterations) + " s"
+            + (" (a thread per template chain: 0.2377, 0.2741 s; cuBLAS's template: 0.078, "
+               "0.115 s)" if name == "auto" else ""))
         check(("chunked clean:" in errbuf.getvalue()) == (block is not None),
               f"north star {name}: the route announcement does not match the route")
         check(launches[name] > 0, f"north star {name}: the kernel never launched")
@@ -2433,7 +2626,8 @@ def main() -> int:
         by_path.update(timed_counted("sweep", phase_sweep, lofar))
         by_path.update(timed_counted("follow", phase_follow, lofar))
         del lofar
-    by_path.update(timed_counted("north star", phase_north_star, entry))
+    by_path.update(timed_counted("north star", phase_north_star, entry,
+                                 entries["ordered_template"]))
     entry["launches_by_path"] = by_path
     entries["ordered_template"]["launches_by_path"] = template_by_path
     entry["busy"] = busy

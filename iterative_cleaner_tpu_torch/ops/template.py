@@ -22,7 +22,9 @@ backend checks before it runs (``backends/torch_backend.check_fp32_matmul``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
@@ -32,8 +34,21 @@ from iterative_cleaner_tpu_torch.config import (
 )
 from iterative_cleaner_tpu_torch.ops.cuda_build import load_library
 
-#: Threads per block of the CUDA kernel; must match kThreads in the source.
-ORDERED_TEMPLATE_THREADS = 32
+#: Launch constants of ``csrc/ordered_template.cu``, mirrored here and held
+#: against the library's ``ordered_template_constants`` when it is loaded.
+TEMPLATE_THREADS = 128          # the chain warp and 3 producer warps
+TEMPLATE_BINS_PER_BLOCK = 16    # one chain per lane of the chain warp
+TEMPLATE_ROWS_PER_STAGE = 256
+TEMPLATE_STAGES = 6
+#: Dynamic shared memory per block: a full and an empty mbarrier (8 bytes
+#: each) per stage, then the stages, each its rows x bins tile and its rows'
+#: weights in float32.
+TEMPLATE_SMEM_BYTES = TEMPLATE_STAGES * (
+    16 + 4 * TEMPLATE_ROWS_PER_STAGE * (TEMPLATE_BINS_PER_BLOCK + 1))
+
+#: The kernel's load paths (its ``path`` argument): 16-byte copies where
+#: the row pitch and the base allow them, 4-byte copies anywhere else.
+PATHS = ("aligned", "unaligned")
 
 #: Profiles the plain version multiplies at once before its ordered adds.
 PLAIN_ROWS = 4096
@@ -57,20 +72,106 @@ def build_template_plain(D: torch.Tensor, weights: torch.Tensor,
     return acc
 
 
+@dataclasses.dataclass(frozen=True)
+class TemplateLaunch:
+    """One launch of the kernel: its load path, its constants, its grid
+    (``blocks`` = bin groups x archives; 0 launches nothing) and the
+    archive strides of ``D`` and ``w`` in elements."""
+
+    path: str
+    bins_per_block: int
+    stages: int
+    rows_per_stage: int
+    smem_bytes: int
+    threads: int
+    blocks: int
+    nprof: int
+    nbin: int
+    narch: int
+    d_arch_stride: int
+    w_arch_stride: int
+
+
+def launch_plan(nprof: int, nbin: int, narch: int, d_ptr: int, d_arch_stride: int,
+                w_arch_stride: int) -> TemplateLaunch:
+    """The launch over ``narch`` archives of ``nprof`` profiles x ``nbin``
+    bins, archive ``a``'s rows at ``d_ptr + 4 * a * d_arch_stride``: the
+    aligned path when every row starts on 16 bytes (the base, the pitch and
+    the archive stride), else the unaligned one.  An empty cube launches
+    nothing (``blocks`` 0)."""
+    aligned = d_ptr % 16 == 0 and nbin % 4 == 0 and d_arch_stride % 4 == 0
+    groups = -(-nbin // TEMPLATE_BINS_PER_BLOCK)
+    return TemplateLaunch(
+        path=PATHS[0] if aligned else PATHS[1],
+        bins_per_block=TEMPLATE_BINS_PER_BLOCK, stages=TEMPLATE_STAGES,
+        rows_per_stage=TEMPLATE_ROWS_PER_STAGE, smem_bytes=TEMPLATE_SMEM_BYTES,
+        threads=TEMPLATE_THREADS, blocks=groups * narch if nprof > 0 else 0,
+        nprof=nprof, nbin=nbin, narch=narch, d_arch_stride=d_arch_stride,
+        w_arch_stride=w_arch_stride)
+
+
+def plan_for(D: torch.Tensor, weights: torch.Tensor, init: torch.Tensor | None = None
+             ) -> tuple[TemplateLaunch, torch.Tensor]:
+    """Check the kernel's operands and plan its launch: ``D (..., nbin)``
+    with one weight per profile, or a batch ``D (a, nsub, nchan, nbin)``
+    with ``weights (a, nsub, nchan)`` and ``init (a, nbin)``, each archive's
+    profiles contiguous and the archive axis of any stride (0 for a cube
+    broadcast with ``expand``).  Returns the plan and the weights as the
+    kernel reads them: (archives, profiles) with contiguous profiles and the
+    plan's archive stride (0 kept where they were broadcast)."""
+    batched = D.dim() == weights.dim() + 1 and D.dim() == 4
+    if D.dtype != torch.float32:
+        raise TypeError(f"D must be float32, got {D.dtype}")
+    narch = D.shape[0] if batched else 1
+    nbin = D.shape[-1]
+    nprof = math.prod(D.shape[1:-1] if batched else D.shape[:-1])
+    if not (D[0] if batched and narch else D).is_contiguous():
+        raise ValueError("D must be contiguous within each archive")
+    if weights.numel() != narch * nprof or weights.device != D.device:
+        raise ValueError(f"weights must hold one value per profile on {D.device}, "
+                         f"got shape {tuple(weights.shape)} on {weights.device}")
+    if init is not None and (init.dtype != torch.float32 or not init.is_contiguous()
+                             or init.numel() != narch * nbin or init.device != D.device):
+        raise ValueError("init must be a contiguous float32 template per archive on "
+                         f"{D.device}")
+    w = weights.to(D.dtype).reshape(narch, nprof)
+    if nprof > 1 and w.stride(1) != 1:
+        w = w.contiguous()
+    d_stride = D.stride(0) if batched else nprof * nbin
+    plan = launch_plan(nprof, nbin, narch, D.data_ptr(), d_stride,
+                       w.stride(0) if batched else nprof)
+    return plan, w
+
+
 def _library():
     lib = load_library("ordered_template")
     if not getattr(lib, "_ict_bound", False):
-        p = ctypes.c_void_p
-        lib.ordered_template_launch.argtypes = [p] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
-        lib.ordered_template_launch.restype = ctypes.c_int
-        lib.ordered_template_error_string.argtypes = [ctypes.c_int]
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.ordered_template_launch.argtypes = [p] * 4 + [i64, i32, i32, i64, i64, i32, p]
+        lib.ordered_template_launch.restype = i32
+        lib.ordered_template_chain_probe.argtypes = [p, p, i64, ctypes.c_float, p]
+        lib.ordered_template_chain_probe.restype = i32
+        lib.ordered_template_error_string.argtypes = [i32]
         lib.ordered_template_error_string.restype = ctypes.c_char_p
-        lib.ordered_template_threads.restype = ctypes.c_int
-        if lib.ordered_template_threads() != ORDERED_TEMPLATE_THREADS:
-            raise RuntimeError("csrc/ordered_template.cu and ORDERED_TEMPLATE_THREADS disagree")
+        lib.ordered_template_constants.argtypes = [p]
+        lib.ordered_template_constants.restype = None
+        got = (ctypes.c_int * 5)()
+        lib.ordered_template_constants(got)
+        want = (TEMPLATE_THREADS, TEMPLATE_BINS_PER_BLOCK, TEMPLATE_ROWS_PER_STAGE,
+                TEMPLATE_STAGES, TEMPLATE_SMEM_BYTES)
+        if tuple(got) != want:
+            raise RuntimeError(
+                "csrc/ordered_template.cu and ops/template.py disagree on the launch "
+                f"constants (threads, bins, rows, stages, shared bytes): {tuple(got)} "
+                f"against {want}")
         lib._ict_bound = True
     return lib
+
+
+def _raise_for(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: {lib.ordered_template_error_string(err).decode()} "
+                           f"(cudaError {err})")
 
 
 def build_template(D: torch.Tensor, weights: torch.Tensor,
@@ -81,8 +182,10 @@ def build_template(D: torch.Tensor, weights: torch.Tensor,
     oracle's order, continuing ``init`` when given (the chunked route's
     blocks).  A batch — ``D (a, nsub, nchan, nbin)``, ``weights (a, nsub,
     nchan)``, ``init (a, nbin)`` — gives ``(a, nbin)`` in one launch, each
-    archive as alone.  A CPU tensor runs :func:`build_template_plain`; a
-    CUDA tensor launches the kernel ``csrc/ordered_template.cu`` or raises —
+    archive as alone, whatever the stride of its archive axis (0 for the
+    sweep's pairs over one cube).  A CPU tensor runs
+    :func:`build_template_plain`; a CUDA tensor launches the kernel
+    ``csrc/ordered_template.cu`` (as :func:`plan_for` plans it) or raises —
     there is no fallback."""
     batched = D.dim() == weights.dim() + 1 and D.dim() == 4
     if D.device.type == "cpu":
@@ -93,35 +196,20 @@ def build_template(D: torch.Tensor, weights: torch.Tensor,
         return build_template_plain(D, weights, init)
     if D.device.type != "cuda":
         raise ValueError(f"build_template runs on cuda or cpu, not {D.device}")
-    narch = D.shape[0] if batched else 1
-    nbin = D.shape[-1]
-    nprof = D.numel() // max(1, narch * nbin)
-    w = weights.to(D.dtype).contiguous()
-    if D.dtype != torch.float32:
-        raise TypeError(f"D must be float32, got {D.dtype}")
-    if not D.is_contiguous():
-        raise ValueError("D must be contiguous")
-    if w.numel() != narch * nprof or w.device != D.device:
-        raise ValueError(f"weights must hold one value per profile on {D.device}, "
-                         f"got shape {tuple(weights.shape)} on {weights.device}")
-    if init is not None and (init.dtype != torch.float32 or not init.is_contiguous()
-                             or init.numel() != narch * nbin or init.device != D.device):
-        raise ValueError("init must be a contiguous float32 template per archive on "
-                         f"{D.device}")
-    out = torch.empty((narch, nbin) if batched else (nbin,), dtype=D.dtype, device=D.device)
-    if nbin == 0 or narch == 0:
-        return out
+    plan, w = plan_for(D, weights, init)
+    out = torch.empty((plan.narch, plan.nbin) if batched else (plan.nbin,), dtype=D.dtype,
+                      device=D.device)
+    if plan.blocks == 0:   # no bins, no archives, or no profiles: init or zeros
+        return out.copy_(init.reshape(out.shape)) if init is not None else out.zero_()
     lib = _library()
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream(D.device).cuda_stream
         with torch.profiler.record_function("ordered_template"):
             err = lib.ordered_template_launch(
                 D.data_ptr(), w.data_ptr(), None if init is None else init.data_ptr(),
-                out.data_ptr(), nprof, nbin, narch, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"ordered_template launch failed: "
-            f"{lib.ordered_template_error_string(err).decode()} (cudaError {err})")
+                out.data_ptr(), plan.nprof, plan.nbin, plan.narch, plan.d_arch_stride,
+                plan.w_arch_stride, PATHS.index(plan.path), stream)
+    _raise_for(lib, err, "ordered_template launch")
     build_template.launches += 1
     return out
 
@@ -133,14 +221,31 @@ build_template.launches = 0
 def build_templates(Db: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     """One template per archive of a batch ``Db (a, nsub, nchan, nbin)``:
     ``(a, nbin)``, each bit-identical to that archive's single-archive
-    template — one launch over a contiguous batch, one per archive over
-    another (the sweep's stride-0 pair axis)."""
-    if Db.is_contiguous():
-        return build_template(Db, wb)
-    out = torch.empty((Db.shape[0], Db.shape[-1]), dtype=Db.dtype, device=Db.device)
-    for j in range(Db.shape[0]):
-        out[j] = build_template(Db[j], wb[j])
-    return out
+    template, in one launch — a contiguous batch or the sweep's stride-0
+    pair axis alike."""
+    if Db.dim() != 4 or wb.dim() != 3:
+        raise ValueError(f"a batch is (a, nsub, nchan, nbin) with (a, nsub, nchan) weights, "
+                         f"got {tuple(Db.shape)} and {tuple(wb.shape)}")
+    return build_template(Db, wb)
+
+
+def chain_probe(n_adds: int, device="cuda") -> tuple[float, int]:
+    """Measurement only (``chip_smoke.py`` phase 3): one warp of the
+    library running chains of ``n_adds`` dependent float32 adds.  Returns
+    (milliseconds by CUDA events, the SM cycles the chain took)."""
+    lib = _library()
+    out = torch.empty(32, dtype=torch.float32, device=device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record(stream)
+        err = lib.ordered_template_chain_probe(out.data_ptr(), cycles.data_ptr(), n_adds,
+                                               1e-3, stream.cuda_stream)
+        b.record(stream)
+    _raise_for(lib, err, "ordered_template_chain_probe launch")
+    b.synchronize()
+    return a.elapsed_time(b), int(cycles.item())
 
 
 def template_norms(template: torch.Tensor) -> torch.Tensor:
