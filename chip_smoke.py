@@ -15,9 +15,17 @@ exits non-zero:
    on the card.  ``fused_fit_moments`` at the main path's shape
    (256 x 1024 x 1024, BASELINE.json config #2), at the chunked route's
    block (32 x 1024 x 1024) and at ragged small shapes, with fills, a pulse
-   region, a zero template and pre-zapped profiles; the launch over a
-   leading archive axis at ragged shapes and at 8 x 256 x 1024 x 1024, each
-   archive bit-identical to the 3-D launch on it alone.  ``ordered_template``
+   region, a zero template and pre-zapped profiles, on the load path its
+   launch plan takes (4-byte copies for an odd pitch and for a base one
+   float into its buffer), up to the widest profile a block takes; the
+   4-byte path forced on an aligned cube and one block of one stage per
+   tile bit-identical to the plan's launch; a north-star chunk slab
+   (as the chunked route cuts 1024 x 4096 x 1024 on a 32 GB card); the
+   launch over a leading archive axis at ragged shapes and at
+   8 x 256 x 1024 x 1024, each archive bit-identical to the 3-D launch on
+   it alone; each timed as a call with its launch (``ms``, as every PR
+   timed it) and as device time of launches back to back (``device_ms``),
+   beside its byte bound.  ``ordered_template``
    bit for bit on both load paths (16-byte copies; 4-byte copies where the
    pitch or the base is not 16-byte aligned) at ragged shapes (zero weights,
    an inf and a NaN sample, fewer profiles than one stage, a partial bin
@@ -28,7 +36,7 @@ exits non-zero:
    over its published peak; for the template also the chain of dependent
    adds) and, for the template, cuBLAS's matrix-vector product; the
    template also on the online slab (32 x 1024 x 1024), over 8 LOFAR cubes
-   and over the sweep's 9 pairs;
+   and over the sweep's 9 pairs, each beside cuBLAS;
 4. main path — writes the seed-42 synthetic 256 x 1024 x 1024 archive,
    cleans it through ``iterative_cleaner_tpu_torch.cli.main`` with the
    defaults (torch backend, cuda, auto kernel, incremental template, the
@@ -112,7 +120,8 @@ exits non-zero:
 14. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the template over the
-   whole cube in one launch, timed, against its sum continued over blocks
+   whole cube in one launch, timed beside cuBLAS's matrix-vector product,
+   against its sum continued over blocks
    whose offsets fit in 31 bits, bit for bit; the kernel over the
    whole cube (4.3e9 elements) against its plain version on slabs at its
    start, across element 2^31 and at its end; then, from host memory, the
@@ -247,13 +256,16 @@ def phase_build():
                 log(f"  ptxas: {line.strip()}")
 
 
-def _inputs(shape, gen, *, prezap=0.01, zero_template=False):
+def _inputs(shape, gen, *, prezap=0.01, zero_template=False, offset=0):
+    """A random cube (``offset`` floats into its buffer), its weights with a
+    share ``prezap`` zapped, and its template."""
     import torch
 
     from iterative_cleaner_tpu_torch.ops.template import build_template
 
     nsub, nchan, nbin = shape
-    D = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    D = torch.randn(nsub * nchan * nbin + offset, generator=gen, device="cuda",
+                    dtype=torch.float32)[offset:].view(shape)
     w0 = 0.8 + 0.4 * torch.rand((nsub, nchan), generator=gen, device="cuda")
     w0[torch.rand((nsub, nchan), generator=gen, device="cuda") < prezap] = 0.0
     t = (torch.zeros(nbin, device="cuda") if zero_template
@@ -262,7 +274,8 @@ def _inputs(shape, gen, *, prezap=0.01, zero_template=False):
 
 
 def _time_ms(fn, runs: int) -> float:
-    """Median of ``runs`` CUDA-event timings after one warm-up call."""
+    """Median of ``runs`` CUDA-event timings after one warm-up call, each
+    around one call: the host's time to launch is in it."""
     import torch
 
     fn()
@@ -279,69 +292,160 @@ def _time_ms(fn, runs: int) -> float:
     return times[len(times) // 2]
 
 
+def _device_ms(fn, runs: int) -> float:
+    """Device milliseconds a call: ``runs`` calls back to back, queued behind
+    a spin of the card long enough for the host to enqueue them all, between
+    two CUDA events — the host's time to launch is not in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000 * runs)
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+#: Phase 3's tolerances for the fit/moments kernel against its plain
+#: version (the f32 sums run in another order).
+FIT_TOL = {"centred": (1e-5, 1e-5), "mean": (1e-5, 1e-6), "std": (1e-5, 1e-6),
+           "ptp": (1e-5, 1e-5)}
+#: The main path's score drift from the oracle on the card with the first
+#: fit/moments kernel (one block of 4 warps per 4 profiles, one sum a lane).
+FIRST_KERNEL_DRIFT = 1.0188e-5
+
+
+def _hold_fit(name, got, want, w0) -> float:
+    """``got`` against the plain version's ``want`` within FIT_TOL, zapped
+    profiles (w0 == 0) exactly 0; returns the largest |difference| over
+    finite entries."""
+    import torch
+
+    err = 0.0
+    for key, g, w in zip(FIT_TOL, got, want):
+        rtol, atol = FIT_TOL[key]
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, equal_nan=True,
+                                   msg=lambda m, k=key, n=name: f"{n}: {k}: {m}")
+        fin = torch.isfinite(w)
+        if fin.any():
+            err = max(err, float((g[fin] - w[fin]).abs().max()))
+    zapped = w0 == 0
+    for key, g in zip(("centred", "mean", "std"), got):
+        check(bool((g[zapped] == 0).all()), f"{name}: {key} not exactly 0 at zapped profiles")
+    return err
+
+
+def _fit_timing(label, narch, shape, fn, plain, runs) -> dict:
+    """The kernel's time a call with the host's launch in it (``ms``:
+    ``_time_ms``, as the main path meets it and as every earlier PR timed
+    it), its device time a launch (``device_ms``: ``_device_ms``, launches
+    back to back) and the plain version's (None: not timed), each share
+    and rate against the byte bound."""
+    call_ms = _time_ms(fn, runs)
+    device_ms = _device_ms(fn, runs)
+    plain_ms = None if plain is None else _time_ms(plain, max(3, runs // 4))
+    bound_ms, bound_by, nbytes = _kernel_bound_ms(narch, shape)
+    log(f"fused_fit_moments {label}: ms={call_ms:.4f} a call ({bound_ms / call_ms:.1%} of the "
+        f"bound, {nbytes / (call_ms * 1e-3) / 1e12:.3f} TB/s) device_ms={device_ms:.4f} "
+        f"({bound_ms / device_ms:.1%}, {nbytes / (device_ms * 1e-3) / 1e12:.3f} TB/s) "
+        f"plain_ms={plain_ms} bound_ms={bound_ms:.4f} ({nbytes / 1e9:.3f} GB, {bound_by})")
+    return {"shape": [narch, *shape] if narch > 1 else list(shape), "ms": call_ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / call_ms,
+            "device_bound_share": bound_ms / device_ms,
+            "tb_per_s": nbytes / (call_ms * 1e-3) / 1e12,
+            "device_tb_per_s": nbytes / (device_ms * 1e-3) / 1e12}
+
+
 def phase_kernel_parity():
     """fused_fit_moments (CUDA) vs fused_fit_moments_plain on the card."""
+    import dataclasses
+
     import torch
 
     from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.parallel import autoshard
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     region = (0.25, 40.0, 90.0)
+    # (name, shape, valid, pulse region, the load path the plan takes, _inputs keywords)
     cases = [
-        ("lofar, valid", LOFAR, True, (0.0, 0.0, 1.0), {}),
-        ("lofar, raw maps", LOFAR, False, (0.0, 0.0, 1.0), {}),
+        ("lofar, valid", LOFAR, True, (0.0, 0.0, 1.0), "aligned", {}),
+        ("lofar, raw maps", LOFAR, False, (0.0, 0.0, 1.0), "aligned", {}),
         ("32x1024x1024 (a chunked block), valid", (32, 1024, 1024), True,
-         (0.0, 0.0, 1.0), {}),
-        ("5x33x100, raw maps", (5, 33, 100), False, (0.0, 0.0, 1.0), {}),
-        ("5x33x100, valid", (5, 33, 100), True, (0.0, 0.0, 1.0), {}),
-        ("8x128x96, valid, pulse region", (8, 128, 96), True, region, {}),
-        ("8x64x256, pulse region", (8, 64, 256), False, region, {}),
-        ("16x32x4096, valid", (16, 32, 4096), True, (0.0, 0.0, 1.0), {}),
-        ("8x64x256, zero template", (8, 64, 256), True, (0.0, 0.0, 1.0),
+         (0.0, 0.0, 1.0), "aligned", {}),
+        ("5x33x100, raw maps", (5, 33, 100), False, (0.0, 0.0, 1.0), "aligned", {}),
+        ("5x33x100, valid", (5, 33, 100), True, (0.0, 0.0, 1.0), "aligned", {}),
+        ("8x128x96, valid, pulse region", (8, 128, 96), True, region, "aligned", {}),
+        ("8x64x256, pulse region", (8, 64, 256), False, region, "aligned", {}),
+        ("16x32x4096, valid", (16, 32, 4096), True, (0.0, 0.0, 1.0), "aligned", {}),
+        ("8x64x256, zero template", (8, 64, 256), True, (0.0, 0.0, 1.0), "aligned",
          {"zero_template": True}),
-        ("8x64x257, pre-zapped 20%", (8, 64, 257), False, (0.0, 0.0, 1.0),
+        ("8x64x257, pre-zapped 20%", (8, 64, 257), False, (0.0, 0.0, 1.0), "unaligned",
          {"prezap": 0.2}),
+        ("16x40x64 one float into its buffer (an unaligned base), valid", (16, 40, 64), True,
+         (0.0, 0.0, 1.0), "unaligned", {"offset": 1}),
+        ("3x7x3, valid (fewer bins than a lane's group)", (3, 7, 3), True, (0.0, 0.0, 1.0),
+         "unaligned", {}),
+        ("2x16x9685, valid (two stages of one profile)", (2, 16, 9685), True,
+         (0.0, 0.0, 1.0), "unaligned", {}),
+        ("1x8x14512, valid (the widest profile a block takes)", (1, 8, 14512), True,
+         (0.0, 0.0, 1.0), "aligned", {}),
     ]
-    tol = {"centred": (1e-5, 1e-5), "mean": (1e-5, 1e-6),
-           "std": (1e-5, 1e-6), "ptp": (1e-5, 1e-5)}
     max_err = 0.0
     fk.fused_fit_moments.launches = 0
-    for name, shape, with_valid, pr, kw in cases:
+    for name, shape, with_valid, pr, path, kw in cases:
         D, t, w0 = _inputs(shape, gen, **kw)
         valid = (w0 != 0) if with_valid else None
+        plan = fk.plan_for(D)
+        check(plan.path == path, f"{name}: the plan takes the {plan.path} path, not {path}")
         got = fk.fused_fit_moments(D, t, w0, valid, pulse_region=pr)
         torch.cuda.synchronize()
         want = fk.fused_fit_moments_plain(D, t, w0, valid, pulse_region=pr)
-        for key, g, w in zip(("centred", "mean", "std", "ptp"), got, want):
-            rtol, atol = tol[key]
-            torch.testing.assert_close(g, w, rtol=rtol, atol=atol, equal_nan=True,
-                                       msg=lambda m, k=key, n=name: f"{n}: {k}: {m}")
-            fin = torch.isfinite(w)
-            if fin.any():
-                max_err = max(max_err, float((g[fin] - w[fin]).abs().max()))
-        zapped = w0 == 0
-        for key, g in zip(("centred", "mean", "std"), got):
-            sel = g[zapped] if key != "centred" else g[zapped].reshape(-1)
-            check(bool((sel == 0).all()), f"{name}: {key} not exactly 0 at zapped profiles")
-        log(f"  {name}: ok ({int(zapped.sum())} zapped profiles)")
+        max_err = max(max_err, _hold_fit(name, got, want, w0))
+        log(f"  {name}: ok, {path} path, {plan.stages} stages x {plan.rows_per_stage} "
+            f"profiles, {plan.blocks} blocks ({int((w0 == 0).sum())} zapped profiles)")
         del D, t, w0, got, want
     check(fk.fused_fit_moments.launches == len(cases), "parity launches were not counted")
+    torch.cuda.empty_cache()
+
+    # The 4-byte path forced on an aligned cube, and one block of one stage
+    # per tile: the same bits as the plan's launch (the lane map alone fixes
+    # them).
+    D, t, w0 = _inputs(ONLINE_SLAB, gen)
+    valid = w0 != 0
+    got = fk.fused_fit_moments(D, t, w0, valid)
+    for over in ({"path": "unaligned"},
+                 {"stages": 1, "rows": fk.KERNEL_CONSUMER_WARPS,
+                  "blocks": fk.plan_for(D, stages=1, rows=fk.KERNEL_CONSUMER_WARPS).tiles}):
+        other = fk.launch(fk.plan_for(D, **over), D, t, w0, valid)
+        for key, g, o in zip(FIT_TOL, got, other):
+            check(_same_bits(g, o), f"{ONLINE_SLAB} with {over}: {key} differs from the plan's "
+                  "launch")
+        del other
+    log(f"  {ONLINE_SLAB}: the 4-byte path forced on the aligned cube and one block of one "
+        "stage per tile give the plan's launch bit for bit")
+    del D, t, w0, valid, got
     torch.cuda.empty_cache()
 
     # Timing at the main path's shape and inputs (fills on, as the step runs it).
     D, t, w0 = _inputs(LOFAR, gen)
     valid = w0 != 0
-    kernel_ms = _time_ms(lambda: fk.fused_fit_moments(D, t, w0, valid), runs=20)
-    plain_ms = _time_ms(lambda: fk.fused_fit_moments_plain(D, t, w0, valid), runs=10)
-    bound_ms, bound_by, bytes_moved = _kernel_bound_ms(1, LOFAR)
-    log(f"fused_fit_moments at {LOFAR}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB; "
-        f"{bytes_moved / (kernel_ms * 1e-3) / 1e12:.3f} TB/s achieved); "
-        f"max_abs_err={max_err:.3e}")
+    plan = fk.plan_for(D)
+    timed = _fit_timing(f"at {LOFAR}", 1, LOFAR, lambda: fk.fused_fit_moments(D, t, w0, valid),
+                        lambda: fk.fused_fit_moments_plain(D, t, w0, valid), runs=20)
+    log(f"  plan at {LOFAR}: {plan}; max_abs_err={max_err:.3e}")
     del D, t, w0, valid
     torch.cuda.empty_cache()
     online = _slab_timing(gen, ONLINE_SLAB)
+    chunk = _north_star_chunk(gen, autoshard.block_subints(NORTH_STAR, 32 * 10**9,
+                                                           use_kernel=True))
+    max_err = max(max_err, chunk.pop("max_abs_err"))
     batched = _batched_kernel_parity(gen)
     max_err = max(max_err, batched["max_abs_err"])
     return {
@@ -352,35 +456,72 @@ def phase_kernel_parity():
         "launches": None,
         "max_abs_err": max_err,
         "parity": "ok",
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": timed["ms"],
+        "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"],
         "library_ms": None,
+        "device_ms": timed["device_ms"],
+        "bound_share": timed["bound_share"],
+        "device_bound_share": timed["device_bound_share"],
+        "tb_per_s": timed["tb_per_s"],
+        "plan": dataclasses.asdict(plan),
         "batched": batched,
         "online_slab": online,
+        "north_star_chunk": chunk,
     }
 
 
 def _slab_timing(gen, shape) -> dict:
     """The kernel and its plain version timed at ``shape`` (the online
     session's provisional-pass slab), against the bound."""
+    import dataclasses
+
     import torch
 
     from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
 
     D, t, w0 = _inputs(shape, gen)
     valid = w0 != 0
-    kernel_ms = _time_ms(lambda: fk.fused_fit_moments(D, t, w0, valid), runs=50)
-    plain_ms = _time_ms(lambda: fk.fused_fit_moments_plain(D, t, w0, valid), runs=20)
-    bound_ms, bound_by, bytes_moved = _kernel_bound_ms(1, shape)
-    log(f"fused_fit_moments at {shape} (the online slab): kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB; "
-        f"{bytes_moved / (kernel_ms * 1e-3) / 1e12:.3f} TB/s achieved)")
+    out = _fit_timing(f"at {shape} (the online slab)", 1, shape,
+                      lambda: fk.fused_fit_moments(D, t, w0, valid),
+                      lambda: fk.fused_fit_moments_plain(D, t, w0, valid), runs=50)
+    out["plan"] = dataclasses.asdict(fk.plan_for(D))
     del D, t, w0, valid
     torch.cuda.empty_cache()
-    return {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def _north_star_chunk(gen, block) -> dict:
+    """The kernel on one slab of the north star as the chunked route cuts it
+    on a 32 GB card (``block`` x 4096 x 1024): against its plain version on
+    its first and last subints (the maths is per profile), then timed."""
+    import dataclasses
+
+    import torch
+
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+
+    shape = (block, *NORTH_STAR[1:])
+    D, t, w0 = _inputs(shape, gen)
+    valid = w0 != 0
+    got = fk.fused_fit_moments(D, t, w0, valid)
+    err = 0.0
+    for lo, hi in ((0, 8), (block - 8, block)):
+        want = fk.fused_fit_moments_plain(D[lo:hi], t, w0[lo:hi], valid[lo:hi])
+        err = max(err, _hold_fit(f"north-star chunk {shape} [{lo}:{hi}]",
+                                 [g[lo:hi] for g in got], want, w0[lo:hi]))
+        del want
+    del got
+    log(f"  north-star chunk {shape}: subints [0:8] and [{block - 8}:{block}] == plain "
+        f"within tolerance, max_abs_err={err:.3e}")
+    out = _fit_timing(f"at {shape} (a north-star chunk on a 32 GB card)", 1, shape,
+                      lambda: fk.fused_fit_moments(D, t, w0, valid), None, runs=10)
+    out["plan"] = dataclasses.asdict(fk.plan_for(D))
+    out["max_abs_err"] = err
+    del D, t, w0, valid
+    torch.cuda.empty_cache()
+    return out
 
 
 def _kernel_bound_ms(narch: int, shape) -> tuple[float, str, float]:
@@ -425,8 +566,6 @@ def _batched_kernel_parity(gen) -> dict:
         ("3x32x1024x1024 (the CLI batch's shape), valid", 3, (32, 1024, 1024), True,
          (0.0, 0.0, 1.0)),
     ]
-    tol = {"centred": (1e-5, 1e-5), "mean": (1e-5, 1e-6),
-           "std": (1e-5, 1e-6), "ptp": (1e-5, 1e-5)}
     max_err = 0.0
     for name, narch, shape, with_valid, pr in cases:
         prezap = 0.2 if "pre-zapped" in name else 0.01
@@ -442,8 +581,8 @@ def _batched_kernel_parity(gen) -> dict:
         torch.cuda.synchronize()
         check(fk.fused_fit_moments.launches == before + 1, f"{name}: not one launch")
         want = fk.fused_fit_moments_plain(Db, tb, wb, vb, pulse_region=pr)
-        for key, g, w in zip(("centred", "mean", "std", "ptp"), got, want):
-            rtol, atol = tol[key]
+        for key, g, w in zip(FIT_TOL, got, want):
+            rtol, atol = FIT_TOL[key]
             torch.testing.assert_close(g, w, rtol=rtol, atol=atol, equal_nan=True,
                                        msg=lambda m, k=key, n=name: f"batched {n}: {k}: {m}")
             fin = torch.isfinite(w)
@@ -465,8 +604,9 @@ def _batched_kernel_parity(gen) -> dict:
     wb = 0.8 + 0.4 * torch.rand((narch, *LOFAR[:2]), generator=gen, device="cuda")
     tb = build_templates(Db, wb)
     vb = wb != 0
-    kernel_ms = _time_ms(lambda: fk.fused_fit_moments(Db, tb, wb, vb), runs=10)
-    plain_ms = _time_ms(lambda: fk.fused_fit_moments_plain(Db, tb, wb, vb), runs=5)
+    timed = _fit_timing(f"batched at {narch} x {LOFAR} (one launch)", narch, LOFAR,
+                        lambda: fk.fused_fit_moments(Db, tb, wb, vb),
+                        lambda: fk.fused_fit_moments_plain(Db, tb, wb, vb), runs=10)
     got = fk.fused_fit_moments(Db, tb, wb, vb)
     for j in (0, narch - 1):
         one = fk.fused_fit_moments(Db[j], tb[j], wb[j], vb[j])
@@ -474,19 +614,15 @@ def _batched_kernel_parity(gen) -> dict:
             check(_same_bits(g[j], w), f"batched 8 x LOFAR: archive {j} {key} differs")
         del one
     want = fk.fused_fit_moments_plain(Db[-1], tb[-1], wb[-1], vb[-1])
-    for key, g, w in zip(("centred", "mean", "std", "ptp"), got, want):
-        rtol, atol = tol[key]
+    for key, g, w in zip(FIT_TOL, got, want):
+        rtol, atol = FIT_TOL[key]
         torch.testing.assert_close(g[-1], w, rtol=rtol, atol=atol, equal_nan=True)
         max_err = max(max_err, float((g[-1] - w).abs().max()))
-    bound_ms, bound_by, bytes_moved = _kernel_bound_ms(narch, LOFAR)
-    log(f"fused_fit_moments batched at {narch} x {LOFAR} (one launch): kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bytes_moved / 1e9:.3f} GB, "
-        f"{bytes_moved / (kernel_ms * 1e-3) / 1e12:.3f} TB/s achieved); archives 0 and "
-        f"{narch - 1} bit-identical to their 3-D launches; max_abs_err={max_err:.3e}")
+    log(f"  batched at {narch} x {LOFAR}: archives 0 and {narch - 1} bit-identical to their "
+        f"3-D launches; max_abs_err={max_err:.3e}")
     del Db, wb, tb, vb, got, want
     torch.cuda.empty_cache()
-    return {"shape": [narch, *LOFAR], "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err}
+    return {**timed, "max_abs_err": max_err}
 
 
 def _same_floats(a, b) -> bool:
@@ -665,34 +801,42 @@ def phase_template_parity():
     # The online session's slab (its first 32 subints: a contiguous slice).
     Ds, ws = D[:ONLINE_SLAB[0]], w[:ONLINE_SLAB[0]]
     slab_ms = _time_ms(lambda: tp.build_template(Ds, ws), runs=50)
+    slab_lib = _time_ms(lambda: torch.matmul(ws.reshape(-1), Ds.reshape(-1, nbin)), runs=50)
     sb, sb_by, snb = _template_bound_ms(ONLINE_SLAB)
     sf, sf_by, _ = _template_bound_ms(ONLINE_SLAB, t_add_ms=t_add_ms)
     log(f"ordered_template at {ONLINE_SLAB} (the online slab): kernel_ms={slab_ms:.4f} "
-        f"bound_ms={sb:.4f} ({snb / 1e9:.3f} GB, {sb_by}); with the chain {sf:.4f} ({sf_by})")
-    timed = {"online_slab": {"shape": list(ONLINE_SLAB), "ms": slab_ms, "bound_ms": sb,
-                             "bound_by": sb_by, "floor_ms": sf, "floor_by": sf_by}}
+        f"library_ms={slab_lib:.4f} (cuBLAS matrix-vector product) bound_ms={sb:.4f} "
+        f"({snb / 1e9:.3f} GB, {sb_by}); with the chain {sf:.4f} ({sf_by})")
+    timed = {"online_slab": {"shape": list(ONLINE_SLAB), "ms": slab_ms, "library_ms": slab_lib,
+                             "bound_ms": sb, "bound_by": sb_by, "floor_ms": sf,
+                             "floor_by": sf_by}}
 
     # Over 8 such cubes (the batch phase), and the sweep's 9 pairs of one cube.
     Db = torch.randn((8, *LOFAR), generator=gen, device="cuda")
     wb = 0.8 + 0.4 * torch.rand((8, nsub, nchan), generator=gen, device="cuda")
     batch_ms = _time_ms(lambda: tp.build_templates(Db, wb), runs=10)
+    batch_lib = _time_ms(lambda: torch.matmul(wb.reshape(8, 1, -1), Db.reshape(8, -1, nbin)),
+                         runs=10)
     tb = tp.build_templates(Db, wb)
     check(_same_floats(tb[7], tp.build_template(Db[7], wb[7])), "batch archive 7 != alone")
     del Db, tb
     wp = torch.rand((9, nsub, nchan), generator=gen, device="cuda")
     Dp = D.expand(9, *LOFAR)
     sweep_ms = _time_ms(lambda: tp.build_templates(Dp, wp), runs=10)
+    sweep_lib = _time_ms(lambda: torch.matmul(wp.reshape(9, -1), D.reshape(-1, nbin)), runs=10)
     tb = tp.build_templates(Dp, wp)
     check(_same_floats(tb[4], tp.build_template(D, wp[4])), "sweep pair 4 != alone")
-    for key, ms, narch, reads in (("batch8", batch_ms, 8, 8), ("sweep9", sweep_ms, 9, 1)):
+    for key, ms, lib_ms, narch, reads, call in (
+            ("batch8", batch_ms, batch_lib, 8, 8, "batched matrix-vector products"),
+            ("sweep9", sweep_ms, sweep_lib, 9, 1, "one 9-row matrix product")):
         bb, bb_by, nbytes = _template_bound_ms(LOFAR, narch, reads)
         fb, fb_by, _ = _template_bound_ms(LOFAR, narch, reads, t_add_ms)
-        timed[key] = {"shape": [narch, *LOFAR], "ms": ms, "bound_ms": bb, "bound_by": bb_by,
-                      "floor_ms": fb, "floor_by": fb_by}
+        timed[key] = {"shape": [narch, *LOFAR], "ms": ms, "library_ms": lib_ms,
+                      "bound_ms": bb, "bound_by": bb_by, "floor_ms": fb, "floor_by": fb_by}
         layout = "one cube, stride 0" if reads == 1 else "contiguous"
         log(f"ordered_template over {narch} x {LOFAR} ({layout}, one launch): "
-            f"kernel_ms={ms:.4f} bound_ms={bb:.4f} ({nbytes / 1e9:.3f} GB, {bb_by}); "
-            f"with the chain {fb:.4f} ({fb_by})")
+            f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} (cuBLAS, {call}) bound_ms={bb:.4f} "
+            f"({nbytes / 1e9:.3f} GB, {bb_by}); with the chain {fb:.4f} ({fb_by})")
     del D, w, Ds, ws, wp, Dp, tb, wb
     torch.cuda.empty_cache()
     return {
@@ -851,7 +995,8 @@ def phase_main_path(entries, lofar_prep):
           "loops/converged differ from the numpy oracle")
     drift = _drift(scores, ora.test_results)
     log(f"  mask identical to the oracle and the kernel-off route; "
-        f"max score drift vs oracle {drift:.4e} (bound {AUDIT_DRIFT_BOUND:g})")
+        f"max score drift vs oracle {drift:.4e} (bound {AUDIT_DRIFT_BOUND:g}; with the first "
+        f"fit/moments kernel {FIRST_KERNEL_DRIFT:.4e})")
     drift_layers(D, w0, ora, drift, off)
     check(drift <= AUDIT_DRIFT_BOUND, f"score drift {drift:.4e} beyond the "
           f"{AUDIT_DRIFT_BOUND:g} envelope")
@@ -933,12 +1078,17 @@ def layer_times(D, w0, served) -> None:
         "fft diagnostic": lambda: fft_diagnostic(c),
         "robust scalers": lambda: scale_and_combine(s, m, p, f, vt, 5.0, 5.0),
     }
-    before = {"dense template": 9.8993, "incremental template": 11.2551,
-              "fused_fit_moments kernel": 0.9846, "fft diagnostic": 2.5480,
-              "robust scalers": 5.1233}   # this phase with a thread per template chain
+    # This phase with the previous designs of both kernels (a 16-bin block's
+    # chain warp for the template, one block of 4 warps per 4 profiles for
+    # fused_fit_moments; NVIDIA H100 80GB HBM3, 700 W).
+    before = {"dense template": 0.8959, "incremental template": 1.3799,
+              "fused_fit_moments kernel": 0.9240, "fft diagnostic": 2.4108,
+              "robust scalers": 3.3299}
     for name, fn in parts.items():
-        log(f"  layer {name}: {_time_ms(fn, runs=10):.4f} ms (a thread per template chain: "
+        log(f"  layer {name}: {_time_ms(fn, runs=10):.4f} ms a call (the previous kernels: "
             f"{before[name]:.4f} ms)")
+    log(f"  layer fused_fit_moments kernel, device time of launches back to back: "
+        f"{_device_ms(parts['fused_fit_moments kernel'], runs=10):.4f} ms")
     del Dt, wt, vt, new_w, t, c, m, s, p, f
     torch.cuda.empty_cache()
 
@@ -1135,7 +1285,8 @@ def phase_obs(lofar, entries) -> dict:
           f"the report's quality summary {qual}")
     check(rep["loops"] == loops, "the obs CLI's loops differ from the main path's")
     log(f"  audit: mask identical, max score drift {aud['max_score_drift']:.4e} (bound "
-        f"{aud['drift_bound']:g}), oracle replay {aud['duration_s']:.1f}s; quality: zap_frac "
+        f"{aud['drift_bound']:g}; with the first fit/moments kernel {FIRST_KERNEL_DRIFT:.4e}), "
+        f"oracle replay {aud['duration_s']:.1f}s; quality: zap_frac "
         f"{qual['zap_frac']:.6f}, {qual['channels_fully_zapped']} channels and "
         f"{qual['subints_fully_zapped']} subints fully zapped, termination "
         f"{qual['termination']}")
@@ -1372,7 +1523,8 @@ def phase_chunked(lofar) -> int:
           == (ora.loops, ora.converged, ora.termination),
           "chunked loops/converged/termination differ from the oracle's")
     drift = _drift(res.test_results, ora.test_results)
-    log(f"  max score drift vs oracle {drift:.4e}")
+    log(f"  max score drift vs oracle {drift:.4e} (with the first fit/moments kernel at the "
+        f"main path {FIRST_KERNEL_DRIFT:.4e})")
     check(drift <= 5e-5, f"chunked score drift {drift:.4e} beyond the 5e-05 envelope")
     # The streamed template pass runs in iteration 1 and wherever more
     # profiles flipped than the sparse update's budget.
@@ -2409,13 +2561,11 @@ def _north_star_parity(Dt, wt) -> float:
     if nsub > edge:
         slabs.append((edge - 4, min(nsub, edge + 4)))
     slabs.append((max(0, nsub - 24), nsub))
-    tol = {"centred": (1e-5, 1e-5), "mean": (1e-5, 1e-6),
-           "std": (1e-5, 1e-6), "ptp": (1e-5, 1e-5)}
     max_err = 0.0
     for lo, hi in slabs:
         want = fk.fused_fit_moments_plain(Dt[lo:hi], t, wt[lo:hi], valid[lo:hi])
-        for key, g, w in zip(("centred", "mean", "std", "ptp"), got, want):
-            rtol, atol = tol[key]
+        for key, g, w in zip(FIT_TOL, got, want):
+            rtol, atol = FIT_TOL[key]
             torch.testing.assert_close(
                 g[lo:hi], w, rtol=rtol, atol=atol, equal_nan=True,
                 msg=lambda m, k=key, a=lo, b=hi: f"north star [{a}:{b}]: {k}: {m}")
@@ -2442,7 +2592,8 @@ def _north_star_template(Dt, wt, tentry) -> None:
     """The template over the whole cube (4.3e9 elements at full size) in one
     launch against the same sum continued over blocks of subints whose
     element offsets fit in 31 bits, bit for bit: the 64-bit offsets without
-    the plain version's ~60 s over 4.2M profiles.  Timed, beside its bound."""
+    the plain version's ~60 s over 4.2M profiles.  Timed, beside its bound
+    and cuBLAS's matrix-vector product (the same sum in another order)."""
     import torch
 
     from iterative_cleaner_tpu_torch.ops.template import build_template
@@ -2463,12 +2614,16 @@ def _north_star_template(Dt, wt, tentry) -> None:
     bound_ms, bound_by, nbytes = _template_bound_ms((nsub, nchan, nbin))
     floor_ms, floor_by, _ = _template_bound_ms((nsub, nchan, nbin),
                                                t_add_ms=tentry["t_add_ns"] * 1e-6)
+    library_ms = _time_ms(lambda: torch.matmul(wt.reshape(-1), Dt.reshape(-1, nbin)), runs=5)
     log(f"  ordered_template over the whole cube {tuple(Dt.shape)} in one launch: "
         f"{ms:.4f} ms (bound {bound_ms:.4f} ms, {nbytes / 1e9:.2f} GB, {bound_by}; with the "
-        f"chain {floor_ms:.4f} ms, {floor_by}); == its sum continued over "
-        f"{-(-nsub // blk)} blocks of {blk} subints, bit for bit")
-    tentry["north_star"] = {"shape": [nsub, nchan, nbin], "ms": ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "floor_ms": floor_ms, "floor_by": floor_by}
+        f"chain {floor_ms:.4f} ms, {floor_by}; cuBLAS's matrix-vector product "
+        f"{library_ms:.4f} ms); == its sum continued over {-(-nsub // blk)} blocks of {blk} "
+        "subints, bit for bit")
+    tentry["north_star"] = {"shape": [nsub, nchan, nbin], "ms": ms,
+                            "library_ms": library_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor_ms,
+                            "floor_by": floor_by}
 
 
 def phase_north_star(entry, tentry) -> dict:

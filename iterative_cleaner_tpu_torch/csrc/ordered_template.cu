@@ -96,6 +96,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "ring.cuh"
+
 // The launch constants; other values only for tools_torch/template_probe.py.
 #ifndef ICT_TEMPLATE_BINS
 #define ICT_TEMPLATE_BINS 16
@@ -125,45 +127,6 @@ static_assert(kBarrierBytes % 16 == 0 && (kStageFloats * 4) % 16 == 0,
               "stages must start on 16-byte boundaries");
 
 constexpr int kProbeUnroll = 16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
-}
-
-// The barrier's phase completes once this thread's earlier copies have
-// landed; counts as one of its expected arrivals.
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
-}
 
 // The chain warp works through its rows kBlk at a time, in a three-step
 // software pipeline: while it adds block n's products, it multiplies block

@@ -1,6 +1,7 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Each ``csrc/<stem>.cu`` has a plain C interface.  It is compiled with
+Each ``csrc/<stem>.cu`` has a plain C interface (the headers beside it,
+``csrc/*.cuh``, are shared by the kernels).  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library and loaded with
 ``ctypes`` — seconds to build, against minutes for an extension that
 includes PyTorch's headers.  The build happens at first use, never at
@@ -56,22 +57,29 @@ def find_nvcc() -> str:
         "the CUDA kernels are built from source at first use")
 
 
-def library_path(stem: str) -> Path:
-    src = CSRC_DIR / f"{stem}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def library_path(stem: str, defines: tuple[str, ...] = ()) -> Path:
+    """The build of ``csrc/<stem>.cu`` under ``defines``, keyed on the
+    source, the headers under ``csrc/`` and the flags."""
+    text = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{stem}.cu",
+                                              *sorted(CSRC_DIR.glob("*.cuh"))])
+    flags = " ".join((*NVCC_FLAGS, *(f"-D{d}" for d in defines)))
+    key = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{stem}-{key}.so"
 
 
-def build(stem: str) -> Path:
+def build(stem: str, defines: tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/<stem>.cu`` unless this exact source is built; returns
-    the library path.  The compiler's output (``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside it as ``.log``."""
-    out = library_path(stem)
+    the library path.  ``defines`` (``NAME=VALUE``, passed as ``-D``) build a
+    variant beside it, for the probes under ``tools_torch/``.  The
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside it as ``.log``."""
+    out = library_path(stem, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+           str(CSRC_DIR / f"{stem}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     tracing.observe_kernel_build(time.perf_counter() - t0)
@@ -84,8 +92,8 @@ def build(stem: str) -> Path:
     return out
 
 
-def build_log(stem: str) -> str:
-    log = library_path(stem).with_suffix(".log")
+def build_log(stem: str, defines: tuple[str, ...] = ()) -> str:
+    log = library_path(stem, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 

@@ -12,6 +12,9 @@ Also here: the routing, and the incremental template against
 
 from __future__ import annotations
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from iterative_cleaner_tpu.ops.preprocess import preprocess as jax_preprocess
 from iterative_cleaner_tpu.ops.template import build_template as jax_build_template
 from iterative_cleaner_tpu_torch.backends import torch_backend
 from iterative_cleaner_tpu_torch.config import CleanConfig
+from iterative_cleaner_tpu_torch.ops import cuda_build
 from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
 from iterative_cleaner_tpu_torch.ops.template import build_template
 
@@ -166,9 +170,13 @@ class TestRouting:
         assert fk.resolve_use_kernel(CleanConfig(backend="torch"), nbin, "cuda") is True
 
     def test_shared_memory_limit(self):
-        ok, why = fk.kernel_route_status(9686, "cuda")
+        # The widest profile a block takes: two stages of one row beside the
+        # template and the bin scale.
+        ok, why = fk.kernel_route_status(14513, "cuda")
         assert not ok and "shared memory" in why
-        assert fk.kernel_smem_bytes(9686) > fk.SMEM_PER_BLOCK >= fk.kernel_smem_bytes(9685)
+        assert (fk.kernel_smem_bytes(14513, fk.MIN_STAGES, 1) > fk.SMEM_PER_BLOCK
+                >= fk.kernel_smem_bytes(14512, fk.MIN_STAGES, 1))
+        assert fk.kernel_route_status(14512, "cuda")[0]
 
     def test_forced_and_residual(self):
         on = CleanConfig(backend="torch", kernel=True)
@@ -183,6 +191,146 @@ class TestRouting:
             CleanConfig(backend="numpy", kernel=True)
         with pytest.raises(ValueError, match="residual"):
             CleanConfig(backend="torch", kernel=True, unload_res=True)
+
+
+class TestLaunchPlan:
+    """``launch_plan``: the load path, the ring, the persistent grid."""
+
+    @pytest.mark.parametrize("nbin, offset, path", [
+        (1024, 0, "aligned"),        # the main path's cube
+        (100, 0, "aligned"),         # a 400-byte pitch
+        (96, 0, "aligned"),
+        (257, 0, "unaligned"),       # a 1028-byte pitch
+        (31, 0, "unaligned"),
+        (3, 0, "unaligned"),
+        (64, 4, "unaligned"),        # a base off 16 bytes by 4
+        (64, 8, "unaligned"),
+        (64, 16, "aligned"),
+    ])
+    def test_path_from_base_and_pitch(self, nbin, offset, path):
+        assert fk.launch_plan(40, nbin, 2, (1 << 20) + offset).path == path
+
+    @pytest.mark.parametrize("nprof", [1, 3, 5, 40, 262144])
+    @pytest.mark.parametrize("narch", [1, 3, 8])
+    def test_aligned_path_has_every_archive_on_16_bytes(self, nprof, narch):
+        # The archive offset is nprof * nbin floats: with the pitch on 16
+        # bytes every archive's base (and every row's) is too, whatever nprof.
+        base = 1 << 20
+        for nbin in (4, 100, 1024):
+            plan = fk.launch_plan(nprof, nbin, narch, base)
+            assert plan.path == "aligned"
+            assert all((base + 4 * a * nprof * nbin) % 16 == 0 for a in range(narch))
+
+    @pytest.mark.parametrize("narch, nprof, nbin, stages, rows, blocks", [
+        (1, 256 * 1024, 1024, 4, 4, 3 * 132),     # LOFAR
+        (1, 32 * 1024, 1024, 4, 4, 3 * 132),      # the online slab
+        (8, 256 * 1024, 1024, 4, 4, 3 * 132),     # the batch of 8
+        (1, 366 * 4096, 1024, 4, 4, 3 * 132),     # a north-star chunk slab
+        (1, 64 * 128, 96, 8, 4, 3 * 132),
+        (1, 16 * 32, 4096, 2, 2, 2 * 132),        # stages and rows shrink with nbin
+        (1, 16 * 32, 9685, 2, 1, 132),
+        (2, 8 * 64, 257, 8, 4, 256),              # fewer tiles than the card holds
+        (3, 5, 100, 8, 4, 6),
+    ])
+    def test_grid_and_stages(self, narch, nprof, nbin, stages, rows, blocks):
+        plan = fk.launch_plan(nprof, nbin, narch, 0)
+        assert (plan.stages, plan.rows_per_stage) == (stages, rows)
+        assert plan.tiles == narch * -(-nprof // rows)
+        assert plan.blocks == min(blocks, plan.tiles)
+        assert plan.threads == fk.KERNEL_THREADS and plan.threads % 32 == 0
+        assert plan.smem_bytes == fk.kernel_smem_bytes(nbin, stages, rows)
+        # As many blocks as the SMs' shared memory holds at once: one wave.
+        per_sm = -(-plan.blocks // fk.H100_SMS)
+        assert per_sm * (plan.smem_bytes + fk.SMEM_RESERVED_PER_BLOCK) <= fk.SMEM_PER_SM
+
+    def test_sms_of_the_card(self):
+        assert fk.launch_plan(256 * 1024, 1024, 1, 0, sms=114).blocks == 3 * 114
+
+    def test_shared_memory_fits_every_accepted_nbin(self):
+        accepted = [n for n in range(1, 16384) if fk.kernel_route_status(n, "cuda")[0]]
+        assert accepted == list(range(1, 14513))
+        for nbin in accepted:
+            stages, rows = fk.ring_shape(nbin)
+            plan = fk.launch_plan(64, nbin, 1, 0)
+            assert fk.MIN_STAGES <= stages <= fk.KERNEL_MAX_STAGES
+            assert 1 <= rows <= fk.KERNEL_CONSUMER_WARPS
+            assert plan.smem_bytes <= fk.SMEM_PER_BLOCK, nbin
+        assert fk.ring_shape(14513) is None
+        with pytest.raises(ValueError, match="shared memory"):
+            fk.launch_plan(64, 14513, 1, 0)
+
+    def test_overrides(self):
+        plan = fk.launch_plan(262144, 1024, 1, 0, stages=1, rows=4, blocks=65536,
+                              path="unaligned")
+        assert (plan.stages, plan.rows_per_stage, plan.blocks, plan.path) == (
+            1, 4, 65536, "unaligned")
+        assert fk.launch_plan(262144, 1024, 1, 0, blocks_per_sm=1).blocks == 132
+        with pytest.raises(ValueError, match="shared memory"):
+            fk.launch_plan(64, 4096, 1, 0, stages=8)
+        for bad in ({"stages": 9}, {"stages": 0}, {"rows": 129}, {"rows": 0}):
+            with pytest.raises(ValueError, match="stages"):
+                fk.launch_plan(64, 64, 1, 0, **{"stages": 2, "rows": 4, **bad})
+
+    @pytest.mark.parametrize("nprof, nbin, narch", [(0, 1024, 1), (100, 0, 1), (100, 64, 0),
+                                                    (0, 0, 3)])
+    def test_an_empty_cube_launches_nothing(self, nprof, nbin, narch):
+        assert fk.launch_plan(nprof, nbin, narch, 0).blocks == 0
+
+    def test_plan_for_a_tensor(self):
+        D = torch.zeros(3, 5, 7, 100)
+        plan = fk.plan_for(D)
+        assert (plan.narch, plan.nprof, plan.nbin) == (3, 35, 100)
+        assert fk.plan_for(torch.zeros(5, 7, 100)).narch == 1
+        assert fk.plan_for(torch.zeros(0, 7, 100)).blocks == 0
+
+    def test_a_plan_for_another_cube_is_refused(self):
+        D, t, w = torch.zeros(2, 3, 8), torch.zeros(8), torch.ones(2, 3)
+        with pytest.raises(ValueError, match="not for a cube"):
+            fk.launch(fk.plan_for(torch.zeros(2, 4, 8)), D, t, w)
+
+    def test_tile_counters_one_pair_per_stream(self, monkeypatch):
+        # Launches on one stream run one after another and share a pair of
+        # counters (each leaves them at 0); another stream gets its own.
+        monkeypatch.setattr(fk, "_COUNTERS", {})
+        dev = torch.device("cpu")
+        first = fk._tile_counters(dev, 11)
+        assert first.dtype == torch.int64 and first.tolist() == [0, 0]
+        assert fk._tile_counters(dev, 11) is first
+        assert fk._tile_counters(dev, 12) is not first
+
+    def test_binding_matches_the_launch_signature(self):
+        # bind() declares the C entry point's arguments; each must have the
+        # width and kind the source gives it.
+        class Fn:
+            def __call__(self, *args):
+                return None
+
+        lib = type("Lib", (), {})()
+        for name in ("fused_fit_moments_launch", "fused_fit_moments_error_string",
+                     "fused_fit_moments_constants"):
+            setattr(lib, name, Fn())
+        fk.bind(lib)
+        src = (cuda_build.CSRC_DIR / "fused_fit_moments.cu").read_text()
+        params = re.search(r"int fused_fit_moments_launch\((.*?)\)\s*\{", src, re.S).group(1)
+        want = [ctypes.c_void_p if "*" in q else
+                ctypes.c_longlong if "long long" in q else ctypes.c_int
+                for q in params.split(",")]
+        assert lib.fused_fit_moments_launch.argtypes == want
+
+    def test_constants_mirror_the_source(self):
+        src = (cuda_build.CSRC_DIR / "fused_fit_moments.cu").read_text()
+        defines = dict(re.findall(r"#define ICT_FIT_(\w+) (\d+)", src))
+        assert {k: int(v) for k, v in defines.items()} == {"COPY": fk.KERNEL_COPY}
+        consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+        assert consts["kConsumerWarps"] == fk.KERNEL_CONSUMER_WARPS
+        assert consts["kMaxStages"] == fk.KERNEL_MAX_STAGES
+        assert consts["kMaxSmemBytes"] == fk.SMEM_PER_BLOCK
+        assert consts["kMaxRows"] == fk.KERNEL_MAX_ROWS
+        assert consts["kBlocksPerSM"] == fk.BLOCKS_PER_SM
+        assert "kHeaderBytes = 3 * kMaxStages * 8" in src
+        assert fk.KERNEL_HEADER_BYTES == 3 * fk.KERNEL_MAX_STAGES * 8
+        assert "kThreads = 32 * (kConsumerWarps + 1)" in src
+        assert fk.KERNEL_THREADS == 32 * (fk.KERNEL_CONSUMER_WARPS + 1)
 
 
 class TestIncrementalTemplate:

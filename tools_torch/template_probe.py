@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -56,22 +55,9 @@ SMALL = ((5, 33, 100), (3, 7, 31), (8, 64, 257), (2, 3, 8), (1, 1, 1024))
 
 
 def build_variant(bins: int, stages: int, rows: int, skip: bool):
-    src = cuda_build.CSRC_DIR / "ordered_template.cu"
-    flags = (*cuda_build.NVCC_FLAGS, f"-DICT_TEMPLATE_BINS={bins}",
-             f"-DICT_TEMPLATE_STAGES={stages}", f"-DICT_TEMPLATE_ROWS={rows}",
-             *(("-DICT_TEMPLATE_SKIP_COPIES",) if skip else ()))
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    out = cuda_build.BUILD_DIR / f"libordered_template-variant-{key}.so"
-    if not out.exists():
-        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([cuda_build.find_nvcc(), *flags, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {bins, stages, rows, skip}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+    defines = (f"ICT_TEMPLATE_BINS={bins}", f"ICT_TEMPLATE_STAGES={stages}",
+               f"ICT_TEMPLATE_ROWS={rows}", *(("ICT_TEMPLATE_SKIP_COPIES",) if skip else ()))
+    out = cuda_build.build("ordered_template", defines)
     lib = ctypes.CDLL(str(out))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.ordered_template_launch.argtypes = [p] * 4 + [i64, i32, i32, i64, i64, i32, p]
@@ -81,7 +67,7 @@ def build_variant(bins: int, stages: int, rows: int, skip: bool):
     lib.ordered_template_constants.argtypes = [p]
     consts = (ctypes.c_int * 5)()
     lib.ordered_template_constants(consts)
-    return lib, tuple(consts), out.with_suffix(".log").read_text()
+    return lib, tuple(consts), cuda_build.build_log("ordered_template", defines)
 
 
 def name(v) -> str:
