@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py      # needs one CUDA card; about 9 minutes on an H100
+    python3 chip_smoke.py      # needs one CUDA card; about 10 minutes on an H100
 
 Phases, in order, each with its seconds; any failure raises and the script
 exits non-zero:
@@ -85,7 +85,9 @@ exits non-zero:
 10. warm-up — iteration 1 of a clean in a fresh process, without and with
    the warm-up thread first;
 11. batch — (a) ``sharded_clean`` over 8 LOFAR cubes in host memory
-   (phase 4's, and 7 made with other seeds and RFI loads) in one dispatch:
+   (phase 4's, and 7 made with other seeds and RFI loads; 3 of them
+   written as ``.ictb`` archives and preprocessed from those, phase 14's
+   jobs) in one dispatch:
    each archive's mask, loops and converged equal ``run_fused`` on it alone
    (dense template), archive 0's the oracle's, one launch per batch
    iteration, at most one host sync per iteration, the peak under the
@@ -117,7 +119,26 @@ exits non-zero:
    atomic rewrites of 4 subints (4 alerts, the oracle's mask) and one
    ``python -m iterative_cleaner_tpu_torch --follow`` process on the
    complete file;
-14. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+14. service — the serving replica (``service/``) on the card.  The native
+   runtime (``native/ict_native.cc``, built with g++ on this host; its build
+   log on failure): the seed-42 archive preprocessed natively, bit for bit
+   phase 4's numpy preprocess, both host times printed.  A
+   ``CleaningService`` (backend torch, bucket cap 4, port 0) takes phase
+   4's archive and the batch phase's archives 101-103 as ``.ictb`` jobs
+   over HTTP: every job done and served ``sharded`` in one coalesced
+   dispatch of 4, masks, loops and converged identical to the batch
+   phase's, no oracle fallback, no demotion, every preprocess native; an
+   audited 4 x 16 x 64 job (``{"audit": true}``, flushed by ``POST
+   /drain``) holds against the oracle on ``/healthz``.  Alongside, a
+   session over HTTP on the raw archive's first 4 blocks of 32 subints
+   (the block codec), one block posted while the job bucket dispatches:
+   each alert the follow phase's, the finish the fused clean of the same
+   subints, latency per block.  Then ``serve --smoke`` in process
+   (``"smoke": "ok"``, backend torch).  Each kernel's launches by host
+   thread: the dispatch worker (``service``), the session's request
+   threads (``service_session``), the smoke's replica (``serve_smoke``),
+   each above 0, their sum the wrapper's count;
+15. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the template over the
    whole cube in one launch, timed beside cuBLAS's matrix-vector product,
@@ -129,7 +150,7 @@ exits non-zero:
    which routes it chunked), each with its peak device memory held against
    the estimate or the budget, wall-clock and per-iteration times; masks
    identical;
-15. one JSON line of the kernels (launches per path; the template kernel's
+16. one JSON line of the kernels (launches per path; the template kernel's
    per phase, each phase's count above 0), then ``{"ok": true, "device":
    ...}`` last.
 
@@ -139,6 +160,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import multiprocessing as mp
@@ -526,17 +548,13 @@ def _north_star_chunk(gen, block) -> dict:
 
 def _kernel_bound_ms(narch: int, shape) -> tuple[float, str, float]:
     """(bound_ms, bound_by, bytes) of one launch over ``narch`` archives of
-    ``shape``: each input read once, each output written once — D and the
-    centred cube (4 B per element each), w0 and the three maps (4 B per
-    profile each), valid (1 B per profile), a template per archive, the bin
-    scale and a <t,t> per archive — against 12 f32 operations per element
-    (tp: mul, add; wr: mul, sub, mul, mul; sum, max, min; centre, square,
-    add)."""
-    nsub, nchan, nbin = shape
-    n, p = narch * nsub * nchan * nbin, narch * nsub * nchan
-    bytes_moved = 8 * n + 16 * p + p + 4 * narch * nbin + 4 * nbin + 4 * narch
+    ``shape``: the bytes and operations the service's cost model counts
+    (``obs.memory.fit_moments_cost``) over the card's rates."""
+    from iterative_cleaner_tpu_torch.obs.memory import fit_moments_cost
+
+    bytes_moved, ops = fit_moments_cost(narch, shape)
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 12 * n / PEAK_F32_FLOPS * 1e3
+    ops_ms = ops / PEAK_F32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_moved
 
 
@@ -636,20 +654,19 @@ def _same_floats(a, b) -> bool:
 
 def _template_bound_ms(shape, narch=1, reads=None, t_add_ms=None) -> tuple[float, str, float]:
     """(bound_ms, bound_by, bytes) of one ordered template over ``narch``
-    archives of ``shape``: the cube read ``reads`` times (``narch`` by
-    default; once for the sweep's pairs over one cube), 4 B per element, the
-    weights (4 B per profile and archive) and the templates written (4 B per
-    bin and archive), against 2 f32 operations per element and archive (a
-    multiply and an add) — and, given the card's time per dependent add
+    archives of ``shape``, the cube read ``reads`` times: the bytes and
+    operations the service's cost model counts (``obs.memory.template_cost``)
+    over the card's rates — and, given the card's time per dependent add
     ``t_add_ms``, the chain: each bin's nprof adds one after another (the
     archives' chains run side by side), bound_by ``"chain"`` where it wins."""
-    nsub, nchan, nbin = shape
-    n, p = nsub * nchan * nbin, nsub * nchan
-    bytes_moved = 4 * n * (narch if reads is None else reads) + 4 * p * narch + 4 * nbin * narch
+    from iterative_cleaner_tpu_torch.obs.memory import template_cost
+
+    nsub, nchan, _nbin = shape
+    bytes_moved, ops = template_cost(shape, narch, reads)
     times = {"bytes": bytes_moved / PEAK_BYTES_PER_S * 1e3,
-             "operations": 2 * n * narch / PEAK_F32_FLOPS * 1e3}
+             "operations": ops / PEAK_F32_FLOPS * 1e3}
     if t_add_ms is not None:
-        times["chain"] = p * t_add_ms
+        times["chain"] = nsub * nchan * t_add_ms
     by = max(times, key=times.get)
     return times[by], by, bytes_moved
 
@@ -884,7 +901,8 @@ def _lofar_archive(work, pool):
 
     def references(ar):
         t0 = time.perf_counter()
-        D, w0 = preprocess(ar)
+        # The numpy path: phase 14 holds the native route against it.
+        D, w0 = preprocess(ar, prefer_native=False)
         t1 = time.perf_counter()
         ora = clean_cube(D, w0, CleanConfig(backend="numpy"))
         return D, w0, ora, t1 - t0, time.perf_counter() - t1
@@ -917,7 +935,7 @@ def phase_main_path(entries, lofar_prep):
     tmp = os.path.dirname(path)
     log(f"wrote {path} ({os.path.getsize(path) / 1e9:.2f} GB) in {write_s:.1f}s (started "
         "before the build)")
-    log(f"preprocessed the same archive for the references in {pre_s:.1f}s and ran "
+    log(f"preprocessed the same archive (numpy path) for the references in {pre_s:.1f}s and ran "
         f"the numpy oracle at full size {LOFAR} in {ora_s:.1f}s, beside the write: "
         f"loops={ora.loops}")
 
@@ -1005,7 +1023,8 @@ def phase_main_path(entries, lofar_prep):
     return {"archive": ar, "D": D, "w0": w0, "served": served, "history": history,
             "loops": loops, "path": path, "wall": wall,
             "converged": rep["converged"], "iteration_s": iters, "oracle": ora,
-            "warm_launches": warm_launches, "warm_template_launches": warm[0].template_launches}
+            "warm_launches": warm_launches, "warm_template_launches": warm[0].template_launches,
+            "preprocess_s": pre_s}
 
 
 def drift_layers(D, w0, ora, drift, off) -> None:
@@ -1798,21 +1817,56 @@ BATCH_ARCHIVES = (
 BATCH_BUDGET = 9 * 10**9
 
 
+#: Archives of the batch phase the service phase submits as jobs: phase 4's
+#: seed 42 and the first three of BATCH_ARCHIVES.
+SERVICE_JOBS = 4
+
+
+def _cube_archive(D, w0, seed):
+    """An Intensity archive (dm 0) holding a preprocessed cube: what a
+    telescope writing cleaned-ready cubes would hand the service."""
+    import numpy as np
+
+    from iterative_cleaner_tpu_torch.io.base import Archive
+
+    nchan = D.shape[1]
+    return Archive(data=D[:, None], weights=w0,
+                   freqs=149.0 + 78.125 * (np.arange(nchan) / nchan - 0.5),
+                   centre_frequency=149.0, dm=0.0, period=0.714,
+                   source=f"SYNTH{seed}", filename=f"cube_seed{seed}")
+
+
 def _batch_cubes(lofar):
     """The batch phase's 8 LOFAR cubes in host memory (archive 0 is phase
-    4's preprocessed seed-42 cube)."""
+    4's preprocessed seed-42 cube).  The next SERVICE_JOBS - 1 are written
+    as ``.ictb`` archives (the service phase's jobs) and their cubes are
+    what ``preprocess`` makes of those archives, so the service's masks can
+    be held bit for bit against this phase's."""
     import torch
 
+    from iterative_cleaner_tpu_torch import native
     from iterative_cleaner_tpu_torch.io.synthetic import RFISpec, make_preprocessed_cube
+    from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
 
+    check(native.available(), f"the native runtime did not build:\n{native.build_log()}")
     cubes, w0s = [lofar["D"]], [lofar["w0"]]
+    work = os.path.dirname(lofar["path"])
+    lofar["service_paths"] = []
     for seed, spec in BATCH_ARCHIVES:
         Dt, wt = make_preprocessed_cube(*LOFAR, seed=seed,
                                         rfi=None if spec is None else RFISpec(**spec),
                                         device="cuda")
-        cubes.append(Dt.cpu().numpy())
-        w0s.append(wt.cpu().numpy())
+        D, w0 = Dt.cpu().numpy(), wt.cpu().numpy()
         del Dt, wt
+        if len(cubes) < SERVICE_JOBS:
+            ar = _cube_archive(D, w0, seed)
+            path = os.path.join(work, f"cube_seed{seed}.ictb")
+            native.save_ictb(path, ar)
+            lofar["service_paths"].append(path)
+            D, w0 = preprocess(ar)
+            del ar
+        cubes.append(D)
+        w0s.append(w0)
     torch.cuda.empty_cache()
     return cubes, w0s
 
@@ -1877,6 +1931,10 @@ def _batch_library(lofar) -> dict:
         fin = ~np.isnan(t1)
         score_diff = max(score_diff, float(np.abs(test_b[j][fin] - t1[fin]).max()))
     check(np.array_equal(w_b[0], lofar["oracle"].weights), "batch archive 0: mask != oracle")
+    # The service phase's references: the masks, loops and converged of the
+    # archives it submits again as jobs.
+    lofar["service_refs"] = [(w_b[j].copy(), int(loops_b[j]), bool(done_b[j]))
+                             for j in range(SERVICE_JOBS)]
     check(launches == max(xs), f"batch launches {launches} != the batch's iterations {max(xs)} "
           f"(not {n} archives x iterations)")
     check(peak <= est, f"batch peak {peak} B exceeds the batched estimate {est} B")
@@ -2278,6 +2336,9 @@ def phase_sweep(lofar) -> dict:
 
 #: The follow phase's blocks: LOFAR's 256 subints in 8 blocks of 32.
 FOLLOW_BLOCK = 32
+#: The service phase's session: the raw LOFAR archive's first blocks of
+#: FOLLOW_BLOCK subints, held against the follow phase's alerts for them.
+SERVICE_BLOCKS = 4
 
 
 @contextlib.contextmanager
@@ -2397,6 +2458,7 @@ def _follow_library(lofar) -> dict:
               f"follow block {b}: the alerts differ between the kernel and plain routes")
         rows.append((alert, n, sum(up), host_s[-1], off.latency_s, n_off))
     del sess.state.provisional_inputs, plain.state.provisional_inputs
+    lofar["follow_alerts"] = [_alert_key(row[0]) for row in rows[:SERVICE_BLOCKS]]
     check(sess._pass_block == FOLLOW_BLOCK, f"pass_block {sess._pass_block}")
     check(counted == {"online_blocks_ingested": nblocks, "online_block_n": nblocks},
           f"the kernel session's counters {counted}, want {nblocks} blocks")
@@ -2528,6 +2590,347 @@ def phase_follow(lofar) -> dict:
     launches = _follow_library(lofar)
     launches["follow_cli"] = _follow_cli()
     return launches
+
+
+#: The service phase's replica: its dispatch worker's thread is named for it.
+SERVICE_REPLICA = "chip-smoke"
+
+
+@contextlib.contextmanager
+def _launches_by_thread():
+    """Tally each kernel wrapper's launches by the host thread that made
+    them, for the ``with`` block: ``fused_fit_moments`` through
+    ``ops/fused_kernels.launch`` (one call per launch) and
+    ``ordered_template`` through ``ops/template._library`` (fetched once per
+    launch).  Yields {kernel: {thread name: launches}}.  The wrappers' own
+    counts stay the authority; the tallies must sum to them."""
+    import threading
+
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops import template as tp
+
+    tally = {"fused_fit_moments": {}, "ordered_template": {}}
+    lock = threading.Lock()
+
+    def note(kernel):
+        name = threading.current_thread().name
+        with lock:
+            tally[kernel][name] = tally[kernel].get(name, 0) + 1
+
+    real_launch, real_library = fk.launch, tp._library
+
+    def launch(*args, **kwargs):
+        out = real_launch(*args, **kwargs)
+        note("fused_fit_moments")
+        return out
+
+    def library():
+        lib = real_library()
+        note("ordered_template")
+        return lib
+
+    fk.launch, tp._library = launch, library
+    try:
+        yield tally
+    finally:
+        fk.launch, tp._library = real_launch, real_library
+
+
+def _service_path(thread_name: str) -> str:
+    """The path a launch belongs to, by its host thread: the phase's
+    replica's dispatch worker (jobs), another replica's (``serve
+    --smoke``), this script's main thread (references), else the HTTP
+    request threads and the finish's warm-up (the session)."""
+    if thread_name == f"ict-serve-dispatch-{SERVICE_REPLICA}":
+        return "service"
+    if thread_name.startswith("ict-serve-dispatch-"):
+        return "serve_smoke"
+    if thread_name == "MainThread":
+        return "service_reference"
+    return "service_session"
+
+
+def _ictb_weights(path, nsub, nchan):
+    """The weights of an ``.ictb`` file, read without its cube (they follow
+    the header and the channel frequencies)."""
+    import ctypes
+
+    import numpy as np
+
+    from iterative_cleaner_tpu_torch import native
+
+    return np.fromfile(path, dtype=np.float32, count=nsub * nchan,
+                       offset=ctypes.sizeof(native.IctbHeader) + 8 * nchan).reshape(nsub, nchan)
+
+
+def _http(base, route, body=None):
+    import urllib.request
+
+    data = None if body is None else body if isinstance(body, bytes) else json.dumps(body).encode()
+    with urllib.request.urlopen(urllib.request.Request(base + route, data=data),
+                                timeout=600) as resp:
+        return json.load(resp)
+
+
+def phase_service(lofar, card) -> tuple[dict, dict]:
+    """The serving replica on the card: the native runtime, four LOFAR
+    ``.ictb`` jobs in one coalesced dispatch, a session alongside, an
+    audited job, ``serve --smoke``."""
+    import threading
+    import traceback
+
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch import native
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.io.ictb import IctbIO
+    from iterative_cleaner_tpu_torch.io.npz import NpzIO
+    from iterative_cleaner_tpu_torch.io.synthetic import make_archive
+    from iterative_cleaner_tpu_torch.obs import tracing
+    from iterative_cleaner_tpu_torch.online.blocks import encode_block
+    from iterative_cleaner_tpu_torch.online.state import SessionMeta
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops import template as tp
+    from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+    from iterative_cleaner_tpu_torch.service import CleaningService, ServeConfig, daemon
+    from iterative_cleaner_tpu_torch.service.jobs import TERMINAL
+
+    ar, nsub, nchan = lofar["archive"], LOFAR[0], LOFAR[1]
+    work = os.path.join(os.path.dirname(lofar["path"]), "service")
+    os.makedirs(work)
+
+    # The native runtime: built on this host, the route counted, bit for bit
+    # the numpy preprocess phase 4 ran on the same archive.
+    check(native.available(), f"the native runtime did not build:\n{native.build_log()}")
+    log(f"native runtime {native.library_path().name}; build log: "
+        + (native.build_log().strip().splitlines()[0] if native.build_log() else "(built before)"))
+    snap = tracing.snapshot()
+    t0 = time.perf_counter()
+    D, w0 = preprocess(ar)
+    native_s = time.perf_counter() - t0
+    check(tracing.delta(snap, "preprocess_native") == 1
+          and tracing.delta(snap, "preprocess_numpy") == 0,
+          "preprocess fell back to numpy with the native runtime built")
+    check(D.tobytes() == lofar["D"].tobytes() and w0.tobytes() == lofar["w0"].tobytes(),
+          "the native preprocess differs from the numpy one")
+    log(f"preprocess of the seed-42 {LOFAR} archive on the host: native {native_s:.3f}s, numpy "
+        f"{lofar['preprocess_s']:.3f}s (phase 4), bit for bit ({card})")
+    del D, w0
+
+    # The session's blocks encoded beside the .ictb write (the client's
+    # work), the jobs' archives: seed 42 here, 101-103 from the batch phase.
+    meta = SessionMeta.from_archive(ar).to_dict()
+    with ThreadPoolExecutor(SERVICE_BLOCKS) as pool:
+        t0 = time.perf_counter()
+        futs = [pool.submit(encode_block, ar.data[b * FOLLOW_BLOCK:(b + 1) * FOLLOW_BLOCK],
+                            ar.weights[b * FOLLOW_BLOCK:(b + 1) * FOLLOW_BLOCK])
+                for b in range(SERVICE_BLOCKS)]
+        path42 = os.path.join(work, "lofar_seed42.ictb")
+        IctbIO().save(ar, path42)
+        write_s = time.perf_counter() - t0
+        payloads = [f.result() for f in futs]
+        encode_s = time.perf_counter() - t0
+    paths = [path42, *lofar["service_paths"]]
+    check(len(paths) == SERVICE_JOBS, f"{len(paths)} job archives")
+    log(f"wrote {path42} ({os.path.getsize(path42) / 1e9:.2f} GB) in {write_s:.2f}s; "
+        f"{SERVICE_BLOCKS} session blocks encoded in {encode_s:.2f}s "
+        f"({sum(len(p) for p in payloads) / 1e6:.1f} MB on the wire)")
+    small = os.path.join(work, "audit.npz")
+    NpzIO().save(make_archive(nsub=4, nchan=16, nbin=64, seed=99), small)
+
+    cfg = ServeConfig(spool_dir=os.path.join(work, "spool"), port=0, replica_id=SERVICE_REPLICA,
+                      bucket_cap=SERVICE_JOBS, deadline_s=60.0, quiet=True, device="cuda",
+                      clean=CleanConfig(backend="torch", quiet=True, no_log=True))
+    snap = tracing.snapshot()
+    labeled = tracing.labeled_snapshot()
+    # The card's byte rate as an operator pins it: the jobs' cost records
+    # then hold the kernels' bytes of every iteration against it.
+    saved_gbps = os.environ.get("ICT_ROOFLINE_GBPS")
+    os.environ["ICT_ROOFLINE_GBPS"] = repr(PEAK_BYTES_PER_S / 1e9)
+    fk.fused_fit_moments.launches = tp.build_template.launches = 0
+    with _launches_by_thread() as tally:
+        svc = CleaningService(cfg)
+        svc.start()
+        try:
+            check(svc.ctx.on_card, "the replica does not hold its cubes on the card")
+            base = f"http://127.0.0.1:{svc.port}"
+            dispatching = threading.Event()
+            sess, sess_err = {}, []
+
+            def session():
+                try:
+                    sid = _http(base, "/sessions", meta)["id"]
+                    rows = []
+                    for b, payload in enumerate(payloads):
+                        if b == 1:   # one block while the job bucket dispatches
+                            check(dispatching.wait(300), "the job bucket never dispatched")
+                        t0 = time.perf_counter()
+                        alert = _http(base, f"/sessions/{sid}/blocks", payload)
+                        rows.append((alert, t0, time.perf_counter()))
+                    t0 = time.perf_counter()
+                    sess["finish"] = _http(base, f"/sessions/{sid}/finish", b"")
+                    sess["finish_s"] = time.perf_counter() - t0
+                    sess["rows"] = rows
+                except BaseException:   # re-raised on the main thread
+                    sess_err.append(traceback.format_exc())
+
+            th = threading.Thread(target=session, name="chip-smoke-session-client")
+            th.start()
+            t_submit = time.perf_counter()
+            ids = [_http(base, "/jobs", {"path": p})["id"] for p in paths]
+            audit_id = _http(base, "/jobs", {"path": small, "audit": True})["id"]
+            t_run = t_done = None
+            while True:
+                jobs = [_http(base, f"/jobs/{i}") for i in ids]
+                states = [j["state"] for j in jobs]
+                now = time.perf_counter()
+                if t_run is None and any(s != "pending" for s in states):
+                    t_run = now
+                    dispatching.set()
+                if t_done is None and any(s in TERMINAL for s in states):
+                    t_done = now
+                if all(s in TERMINAL for s in states) or now - t_submit > 600:
+                    break
+                time.sleep(0.01)
+            jobs_s = time.perf_counter() - t_submit
+            for j, p, (w, loops, done) in zip(jobs, paths, lofar["service_refs"]):
+                check(j["state"] == "done" and j["served_by"] == "sharded",
+                      f"job {p}: {j['state']} via {j['served_by']!r}: {j.get('error')}")
+                check(np.array_equal(_ictb_weights(j["out_path"], nsub, nchan), w),
+                      f"job {p}: mask differs from the batch phase's")
+                check((j["loops"], j["converged"]) == (loops, done),
+                      f"job {p}: loops/converged differ from the batch phase's")
+            waits = [j["finished_s"] - j["submitted_s"] for j in jobs]
+            log(f"{SERVICE_JOBS} LOFAR .ictb jobs over HTTP: done in {jobs_s:.2f}s (submit to "
+                f"done per job " + ", ".join(f"{s:.2f}" for s in waits) + " s), served "
+                f"'sharded', masks, loops and converged identical to the batch phase's; "
+                f"dispatch seen at +{t_run - t_submit:.2f}s, first job done at "
+                f"+{t_done - t_submit:.2f}s ({card})")
+
+            # The audited job's bucket is parked below its cap: drain flushes it.
+            check(_http(base, "/drain", {})["draining"], "drain refused")
+            while _http(base, f"/jobs/{audit_id}")["state"] not in TERMINAL:
+                time.sleep(0.01)
+            check(svc.auditor.drain(120), "the shadow audit did not finish")
+            health = _http(base, "/healthz")
+            audit_job = _http(base, f"/jobs/{audit_id}")
+            check(audit_job["state"] == "done" and audit_job["served_by"] == "sharded",
+                  f"audited job: {audit_job['state']} via {audit_job['served_by']!r}")
+            check(tracing.delta(snap, "audit_runs") >= 1 and health["audits_run"] >= 1
+                  and health["audit_divergences"] == 0,
+                  f"audit: {health['audits_run']} run, {health['audit_divergences']} divergences")
+            check(health["backend"] == "torch", f"/healthz backend {health['backend']!r}")
+            log(f"  audited 4x16x64 job: served 'sharded', audit mask identical "
+                f"{audit_job['audit_result']['mask_identical']}, drift "
+                f"{audit_job['audit_result'].get('max_score_drift')}; /healthz backend "
+                f"{health['backend']}, audits_run {health['audits_run']}, divergences "
+                f"{health['audit_divergences']}")
+
+            # serve --smoke: its own replica, archive and audit, over HTTP.
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = daemon.serve_main(["--smoke", "-q"])
+            smoke_s = time.perf_counter() - t0
+            said = json.loads(out.getvalue().strip().splitlines()[-1])
+            check(rc == 0 and said["smoke"] == "ok" and said["backend"] == "torch",
+                  f"serve --smoke: rc {rc}, {said}")
+            log(f"  serve --smoke: {json.dumps(said)} in {smoke_s:.2f}s")
+            # The cost record lands on the manifest after the bucket's
+            # emission; read it back now.
+            cost = _http(base, f"/jobs/{ids[0]}").get("cost", {})
+            log(f"  job cost record: device_s {cost.get('device_s')}, batch_k "
+                f"{cost.get('batch_k')}, bytes_accessed {cost.get('bytes_accessed')}, "
+                f"attainment {cost.get('attainment')} (of {PEAK_BYTES_PER_S / 1e12} TB/s), "
+                f"phases {cost.get('phases')}")
+            check(cost.get("attainment") is not None and 0 < cost["attainment"] <= 1,
+                  f"the job's attainment {cost.get('attainment')} is not a share of the "
+                  "card's byte rate")
+
+            th.join(900)
+            check(not th.is_alive(), "the session client did not finish")
+            check(not sess_err, "the session failed:\n" + "".join(sess_err))
+        finally:
+            svc.stop()
+            if saved_gbps is None:
+                os.environ.pop("ICT_ROOFLINE_GBPS")
+            else:
+                os.environ["ICT_ROOFLINE_GBPS"] = saved_gbps
+        # The wrappers' own counts over the tallied block (the references
+        # below launch too).
+        totals = {"fused_fit_moments": fk.fused_fit_moments.launches,
+                  "ordered_template": tp.build_template.launches}
+
+    # Counters over the phase: one coalesced dispatch of 4, no fall back.
+    key = ("coalesce_batch_size_total",
+           (("k", str(SERVICE_JOBS)), ("shape_bucket", "x".join(map(str, LOFAR)))))
+    k4 = tracing.labeled_snapshot().get(key, 0.0) - labeled.get(key, 0.0)
+    check(k4 == 1, f"{k4} coalesced dispatches of {SERVICE_JOBS} LOFAR cubes, want 1")
+    counters = tracing.counters_snapshot()
+    for name in ("service_oracle_fallbacks", "service_backend_demotions"):
+        check(counters.get(name, 0.0) == 0, f"{name} = {counters.get(name)}: the card was bypassed")
+    check(tracing.delta(snap, "preprocess_numpy") == 0
+          and tracing.delta(snap, "preprocess_native") >= SERVICE_JOBS,
+          "a preprocess of the phase fell back to numpy")
+    log(f"  counters: coalesce_batch_size_total{{k={SERVICE_JOBS}}} +{k4:.0f}, oracle fallbacks 0, "
+        f"demotions 0, preprocess native +{tracing.delta(snap, 'preprocess_native'):.0f}, numpy +0")
+    stages = {name: (tracing.delta(snap, f"{name}_s"), tracing.delta(snap, f"{name}_n"))
+              for name in ("service_load", "service_dispatch", "service_emit", "online_pass")}
+    log("  stage means over the phase (host clock): " + ", ".join(
+        f"{name} {t / n:.3f}s x{n:.0f}" for name, (t, n) in stages.items() if n)
+        + " (service_load: the .ictb read and the native preprocess, before the loader's "
+        "two SHA-256 passes)")
+
+    # The session: each alert the follow phase's, the finish the canonical
+    # clean of the same subints on another route (the fused loop).
+    for b, (alert, t0, t1) in enumerate(sess["rows"]):
+        got = {k: v for k, v in alert.items() if k != "latency_s"}
+        check(got == lofar["follow_alerts"][b],
+              f"session block {b}: the alert differs from the follow phase's")
+    overlap = sess["rows"][1][1] < t_done
+    check(overlap, "session block 1 was not posted while the job bucket dispatched")
+    fin = sess["finish"]
+    nsub_s = SERVICE_BLOCKS * FOLLOW_BLOCK
+    prefix = dataclasses.replace(ar, data=ar.data[:nsub_s], weights=ar.weights[:nsub_s])
+    ref = clean_cube(*preprocess(prefix), CleanConfig(backend="torch", fused=True), device="cuda")
+    with np.load(fin["out_path"]) as z:
+        served = z["weights"]
+    check(fin["state"] == "done" and np.array_equal(served, ref.weights)
+          and (fin["loops"], fin["converged"]) == (ref.loops, ref.converged),
+          "the session's finish differs from the fused clean of the same subints")
+    log(f"session over HTTP, {SERVICE_BLOCKS} blocks of {FOLLOW_BLOCK} subints: alerts identical "
+        "to the follow phase's; block latency (server / round trip) "
+        + ", ".join(f"{a['latency_s']:.3f}/{t1 - t0:.3f}" for a, t0, t1 in sess["rows"])
+        + f" s; block 1 posted at +{sess['rows'][1][1] - t_submit:.2f}s, inside the job "
+        f"dispatch; finish {sess['finish_s']:.2f}s (NPZ write included), mask identical to the "
+        f"fused clean of the same {nsub_s} subints, loops {fin['loops']}")
+    del prefix, ref, served
+
+    # Launches by path, their sum each wrapper's own count.
+    paths_by = {}
+    for kernel, counts in tally.items():
+        total = totals[kernel]
+        check(sum(counts.values()) == total,
+              f"{kernel}: {sum(counts.values())} launches tallied by thread, the wrapper "
+              f"counted {total}")
+        split = {}
+        for name, n in counts.items():
+            split[_service_path(name)] = split.get(_service_path(name), 0) + n
+        for path in ("service", "service_session", "serve_smoke"):
+            check(split.get(path, 0) > 0, f"{kernel} was launched no time on the {path} path")
+        paths_by[kernel] = split
+        log(f"  {kernel} launches: " + ", ".join(f"{k} {v}" for k, v in sorted(split.items())))
+    want = sum((a["nsub_total"] // FOLLOW_BLOCK) * a["pass_iterations"]
+               for a, _t0, _t1 in sess["rows"]) + fin["loops"] + 1
+    check(paths_by["fused_fit_moments"]["service_session"] == want,
+          f"session launches {paths_by['fused_fit_moments']['service_session']} != slabs x "
+          f"iterations of its passes + the finish's loops + its warm-up ({want})")
+    torch.cuda.empty_cache()
+    keep = ("service", "service_session", "serve_smoke")
+    return ({k: paths_by["fused_fit_moments"][k] for k in keep},
+            {k: paths_by["ordered_template"][k] for k in keep})
 
 
 def _host_available_bytes() -> int:
@@ -2737,7 +3140,7 @@ def phase_north_star(entry, tentry) -> dict:
 
 
 def main() -> int:
-    phase_environment()
+    card = phase_environment()
     import torch
 
     from iterative_cleaner_tpu_torch.ops import template as tp
@@ -2780,6 +3183,9 @@ def main() -> int:
         by_path.update(timed_counted("batch", phase_batch, lofar))
         by_path.update(timed_counted("sweep", phase_sweep, lofar))
         by_path.update(timed_counted("follow", phase_follow, lofar))
+        fit_service, template_service = timed_counted("service", phase_service, lofar, card)
+        by_path.update(fit_service)
+        template_by_path.update(template_service)
         del lofar
     by_path.update(timed_counted("north star", phase_north_star, entry,
                                  entries["ordered_template"]))

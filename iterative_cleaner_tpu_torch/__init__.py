@@ -8,6 +8,7 @@ points run on the card unless the caller passes ``device="cpu"``.
 
 Layer map (module names mirror the JAX package's):
 
+  service             .service.*                        (serve: HTTP jobs, sessions)
   CLI / driver        .cli, .driver                     (host)
   online              .online.follow, .session, .state  (--follow: growing archives)
   model               .models.surgical                  (archive in/out)
@@ -20,10 +21,13 @@ Layer map (module names mirror the JAX package's):
   ops                 .ops.template, .masked, .stats    (torch ops; the template
                                                          kernel csrc/ordered_template.cu)
                       .ops.fused_kernels + csrc/*.cu    (hand-written CUDA)
-                      .ops.preprocess                   (host, numpy)
-  io                  .io.*                             (NPZ; .io.tail polls a growing file)
+                      .ops.preprocess, .native          (host: numpy, or C++/OpenMP)
+  io                  .io.*                             (NPZ, .ictb; .io.tail polls a
+                                                         growing file)
   observability       .obs.* , .utils.device_probe      (events, metrics, forensics,
-                                                         audit, torch.profiler, memory)
+                                                         audit, torch.profiler, memory,
+                                                         costs)
+  wire                .ingest.codec, .online.blocks     (the session block codec)
   state transfer      .convert                          (from the JAX package)
 """
 

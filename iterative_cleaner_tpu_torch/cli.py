@@ -9,7 +9,8 @@ Port of ``iterative_cleaner_tpu/cli.py``: the reference flag surface
 ``--alert_iters``), ``--sweep``, ``--audit``, ``--dump_masks``, ``--report``,
 ``--telemetry`` and ``--trace``.  ``-z`` and the JAX package's other
 extensions are not yet ported.  The exit code is 1 when any archive failed,
-2 for a usage error.
+2 for a usage error.  ``serve`` as the first argument runs the serving
+daemon (``service/daemon.serve_main``, also ``ict-serve-torch``).
 
 Every run mints a trace id and wraps its work in the ``cli_run`` span, so
 the events of one invocation share it (``--telemetry`` / ``ICT_TELEMETRY``
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 
 from iterative_cleaner_tpu_torch.config import CleanConfig
@@ -208,6 +210,15 @@ def parse_sweep_pairs(specs: list[str]) -> list[tuple[float, float]]:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "serve" and not os.path.isfile("serve"):
+        # The long-running cleaning daemon (service/daemon.py).  Dispatched
+        # on the literal first token — unless a regular FILE named "serve"
+        # exists in cwd (a directory can never be an archive positional),
+        # in which case the reference semantics win; the
+        # ``ict-serve-torch`` script is the unambiguous entry point.
+        from iterative_cleaner_tpu_torch.service.daemon import serve_main
+
+        return serve_main(argv[1:])
     args = build_parser().parse_args(argv)
     try:
         cfg = config_from_args(args)

@@ -1,13 +1,13 @@
 """Content addressing for cleaned results.
 
 A copy of ``iterative_cleaner_tpu/ingest/cas.py``: :func:`cache_salt`,
-:func:`cube_key` and :func:`file_digest`.  The salt
+:func:`cube_key`, :func:`file_digest` and :func:`cache_report`.  The salt
 hashes the package version with every mask-affecting ``CleanConfig`` field
 (thresholds, iteration cap, pulse region, bad-parts policy, the output
 policy) and ``ICT_CACHE_SALT``; route-selection fields are not salted,
-since masks are bit-identical across routes.  In the port the CLI's
-``job_submitted`` event carries the salt; the result cache that keys on it
-comes with the service slice, and with it ``cache_report``.
+since masks are bit-identical across routes.  The CLI's ``job_submitted``
+event carries the salt; the serving daemon's result cache
+(``service/results_cache.py``) keys on :func:`cube_key`.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import os
 
 import numpy as np
 
+from iterative_cleaner_tpu_torch.obs import tracing
 
 #: CleanConfig fields that can change the served mask (or the served
 #: output archive's contents) -- the salt covers exactly these.  The
@@ -75,3 +76,14 @@ def file_digest(path: str) -> str:
     except OSError:
         return ""
     return h.hexdigest()
+
+
+def cache_report() -> dict:
+    """Cumulative result-cache counters out of the process-global
+    registry."""
+    snap = tracing.counters_snapshot()
+    return {
+        "hits": int(snap.get("service_result_cache_hits", 0)),
+        "misses": int(snap.get("service_result_cache_misses", 0)),
+        "bytes_saved": int(snap.get("service_result_cache_bytes_saved", 0)),
+    }

@@ -1,9 +1,9 @@
 """Archive data model + I/O protocol.
 
 A copy of ``iterative_cleaner_tpu/io/base.py`` (``Archive``, the
-``ArchiveIO`` protocol, extension routing).  Only the NPZ format is ported:
-``.ictb`` (the native C++ runtime's format) and PSRCHIVE ``.ar`` paths raise
-a "not yet ported" error.
+``ArchiveIO`` protocol, extension routing): ``.npz`` and ``.ictb`` (the
+native C++ runtime's format, :mod:`.ictb`).  PSRCHIVE ``.ar`` paths raise a
+"not yet ported" error.
 """
 
 from __future__ import annotations
@@ -98,10 +98,16 @@ def _npz_io():
     return NpzIO()
 
 
+def _ictb_io():
+    from iterative_cleaner_tpu_torch.io.ictb import IctbIO
+
+    return IctbIO()
+
+
 # Extension routing; anything unlisted is a PSRCHIVE .ar path.
 EXTENSION_IO = {
     ".npz": _npz_io,
-    ".ictb": lambda: NotPortedIO("the .ictb format (native C++ runtime)"),
+    ".ictb": _ictb_io,
 }
 DEFAULT_EXT = ".ar"
 

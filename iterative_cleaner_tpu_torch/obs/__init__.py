@@ -20,18 +20,20 @@ the JAX package's module names and public names:
                       and bounded on-demand captures;
 - :mod:`.memory`    — device-memory / host-RSS accounting on
                       ``torch.cuda.memory_stats``;
-- :mod:`.audit`     — oracle parity auditing, score-drift accounting and
-                      divergence repro bundles;
-- :mod:`.quality`   — RFI data-quality telemetry.
+- :mod:`.audit`     — oracle parity auditing, score-drift accounting,
+                      divergence repro bundles and the serving daemon's
+                      shadow auditor;
+- :mod:`.quality`   — RFI data-quality telemetry;
+- :mod:`.costs`     — the serving daemon's per-job cost records and its
+                      showback ledger.
 
 Everything here is read-only on the math: no hook touches a mask, and
-every hook is a no-op when its sink is disabled.  The JAX package's
-``obs/costs.py`` (per-job cost records of its serving daemon) comes with
-the port's service slice.
+every hook is a no-op when its sink is disabled.
 """
 
 from iterative_cleaner_tpu_torch.obs import (
     audit,
+    costs,
     events,
     flight,
     forensics,
@@ -42,5 +44,5 @@ from iterative_cleaner_tpu_torch.obs import (
     tracing,
 )
 
-__all__ = ["audit", "events", "flight", "forensics", "memory", "metrics",
+__all__ = ["audit", "costs", "events", "flight", "forensics", "memory", "metrics",
            "profiling", "quality", "tracing"]

@@ -17,9 +17,11 @@ real run:
   under :func:`default_repro_dir`).  The bundle has the JAX writer's file
   set and manifest keys; its ``config`` is the port's ``CleanConfig``.
 
-The JAX package's ``ShadowAuditor`` (the serving daemon's background
-auditor) and its sampling (``should_audit``) come with the port's service
-slice; :func:`audit_rate` reads ``ICT_AUDIT_RATE`` for :func:`audit_report`.
+- :class:`ShadowAuditor` is the serving daemon's background auditor: the
+  dispatch worker offers finished jobs, sampled by :func:`should_audit` at
+  :func:`audit_rate` (``ICT_AUDIT_RATE`` / ``serve --audit_rate``) or asked
+  for per job (``{"audit": true}``), and one thread replays them on the
+  host.
 
 Strictly read-only on the math: the audit replays the inputs after the
 clean already produced its result.
@@ -27,17 +29,21 @@ clean already produced its result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
 import platform
+import queue
+import random
 import sys
+import threading
 import time
 import uuid
 
 import numpy as np
 
-from iterative_cleaner_tpu_torch.obs import flight, tracing
+from iterative_cleaner_tpu_torch.obs import events, flight, tracing
 
 #: The documented score-drift envelope: float scores may differ from the
 #: oracle's by a few ulps — up to ~5e-5 unit-floored relative — on the
@@ -71,6 +77,17 @@ def audit_rate(default: float = 0.0) -> float:
               "(want a fraction in [0, 1])", file=sys.stderr)
         return default
     return min(max(val, 0.0), 1.0)
+
+
+def should_audit(requested: bool, rate: float) -> bool:
+    """Per-job opt-in always audits; otherwise sample at ``rate``."""
+    if requested:
+        return True
+    if rate <= 0.0:
+        return False
+    if rate >= 1.0:
+        return True
+    return random.random() < rate
 
 
 def oracle_config(cfg):
@@ -302,3 +319,169 @@ def list_bundles(directory: str) -> list[dict]:
             entry["reason"] = "unreadable manifest"
         out.append(entry)
     return out
+
+
+_STOP = object()
+
+
+# --- the serving daemon's background auditor ---
+
+
+class ShadowAuditor(threading.Thread):
+    """Low-priority shadow-oracle replay thread for the serving daemon.
+
+    The dispatch worker offers completed jobs (with their already-decoded
+    cubes) via :meth:`submit`; the queue is small and non-blocking — under
+    load, audits are *sampled down* by back-pressure (``audit_skipped``
+    counts the drops) instead of pinning cube-sized arrays or delaying
+    the dispatch thread.  One replay at a time, pure numpy on host: the
+    device never sees an audit.
+    """
+
+    def __init__(self, spool, repro_dir: str, on_divergence=None,
+                 quiet: bool = False, queue_max: int = 8) -> None:
+        super().__init__(daemon=True, name="ict-audit")
+        self.spool = spool
+        self.repro_dir = repro_dir
+        self.on_divergence = on_divergence
+        self.quiet = quiet
+        self._q: queue.Queue = queue.Queue(maxsize=queue_max)
+        self._recent: collections.deque = collections.deque(maxlen=20)
+        # Accepted-but-unfinished count, incremented BEFORE the enqueue
+        # and decremented only after the audit completes: drain() keys off
+        # this, not queue emptiness, so the instant between a dequeue and
+        # the audit starting can never read as "idle".
+        self._outstanding = 0  # ict: guarded-by(self._lock)
+        self._lock = threading.Lock()
+        self._stop_evt = threading.Event()
+
+    def submit(self, job, D, w0, weights, scores, served_by: str,
+               clean_cfg) -> bool:
+        """Queue one completed job for auditing; False (and a counted
+        skip) when the queue is full."""
+        with self._lock:
+            self._outstanding += 1
+        try:
+            self._q.put_nowait((job, np.asarray(D), np.asarray(w0),
+                                np.asarray(weights), scores, served_by,
+                                clean_cfg))
+            return True
+        except queue.Full:
+            with self._lock:
+                self._outstanding -= 1
+            tracing.count("audit_skipped")
+            return False
+
+    def queue_depth(self) -> int:
+        return self._q.qsize()
+
+    def stop(self) -> None:
+        """Non-blocking: a full audit queue must not stall the daemon's
+        graceful stop behind a cube-sized oracle replay — queued audits
+        are abandoned (the jobs already served their results)."""
+        self._stop_evt.set()
+        try:
+            self._q.put_nowait(_STOP)
+        except queue.Full:
+            pass  # run() checks the event on every dequeued item
+
+    def drain(self, timeout_s: float = 60.0) -> bool:
+        """Block until every accepted audit has finished (tests, the smoke
+        check); True on success, False on timeout."""
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            with self._lock:
+                if self._outstanding == 0:
+                    return True
+            time.sleep(0.02)
+        return False
+
+    def recent(self) -> list[dict]:
+        with self._lock:
+            return list(self._recent)
+
+    def run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is _STOP or self._stop_evt.is_set():
+                # Abandon whatever is still queued (stop() may not have
+                # fit its sentinel into a full queue) and keep the
+                # outstanding count honest on the way out.
+                with self._lock:
+                    if item is not _STOP:
+                        self._outstanding -= 1
+                    while True:
+                        try:
+                            nxt = self._q.get_nowait()
+                        except queue.Empty:
+                            break
+                        if nxt is not _STOP:
+                            self._outstanding -= 1
+                return
+            try:
+                self._audit_one(*item)
+            except Exception as exc:  # noqa: BLE001 — the thread must live
+                tracing.count("audit_errors")
+                if not self.quiet:
+                    print(f"ict-serve: shadow audit failed: {exc}",
+                          file=sys.stderr)
+            finally:
+                with self._lock:
+                    self._outstanding -= 1
+
+    def _audit_one(self, job, D, w0, weights, scores, served_by,
+                   clean_cfg) -> None:
+        with events.trace_scope(job.trace_id), tracing.phase("service_audit"):
+            record, oracle_w = run_audit(
+                D, w0, clean_cfg, weights, scores_served=scores,
+                route=served_by)
+        record["job_id"] = job.id
+        bundle = None
+        if not record["mask_identical"]:
+            bundle = write_repro_bundle(
+                self.repro_dir, D=D, w0=w0, cfg=clean_cfg,
+                reason=f"shadow-audit divergence: job {job.id} "
+                       f"(route {served_by})",
+                weights_served=weights, weights_oracle=oracle_w,
+                scores_served=scores, trace_id=job.trace_id,
+                job_id=job.id, route=served_by, record=record)
+            record["bundle"] = bundle
+            if events.active():
+                events.emit("audit_divergence", trace_id=job.trace_id,
+                            job_id=job.id, route=served_by,
+                            n_mask_diffs=record["n_mask_diffs"],
+                            bundle=bundle or "")
+            print(f"ict-serve: AUDIT DIVERGENCE job {job.id} "
+                  f"(route {served_by}): {record['n_mask_diffs']} mask "
+                  f"bit(s) differ from the numpy oracle"
+                  + (f"; repro bundle at {bundle}" if bundle else ""),
+                  file=sys.stderr)
+        elif events.active():
+            events.emit("audit_done", trace_id=job.trace_id, job_id=job.id,
+                        route=served_by,
+                        drift_within_bound=record["drift_within_bound"])
+        with self._lock:
+            self._recent.append(record)
+        job.audit_result = record
+        # Re-persist the manifest only once the worker's own terminal save
+        # happened (the worker queues the audit just BEFORE that save): a
+        # save here with state still "running" could win the race and
+        # leave a served job looking unfinished to a restart replay.  The
+        # worker's transition is microseconds away, so the wait is
+        # bounded-short and normally zero iterations.
+        from iterative_cleaner_tpu_torch.service.jobs import TERMINAL
+
+        deadline = time.time() + 5.0
+        while job.state not in TERMINAL and time.time() < deadline:
+            time.sleep(0.005)
+        if job.state in TERMINAL:
+            try:
+                self.spool.save(job)
+            except Exception:  # noqa: BLE001 — the job already served
+                pass
+        # Escalation keys off the CONFIRMED divergence, never off the
+        # bundle write succeeding: a full spool disk (likely exactly when
+        # a route diverges repeatedly — each bundle holds a cube) must not
+        # keep a wrong-mask route in service.
+        if not record["mask_identical"] and self.on_divergence is not None:
+            self.on_divergence(record)

@@ -39,6 +39,16 @@ def attribution_enabled() -> bool:
     return os.environ.get("ICT_FORENSICS") == "1"
 
 
+def timeline_enabled() -> bool:
+    """Whether the serving daemon should pay for per-job iteration
+    timelines on the batched route (a mask-history fetch per bucket): on
+    with an active telemetry sink or ICT_FORENSICS=1.  The oracle route
+    records its timeline unconditionally."""
+    from iterative_cleaner_tpu_torch.obs import events
+
+    return events.enabled() or attribution_enabled()
+
+
 def _host(a) -> np.ndarray:
     """A numpy view of ``a``: a torch tensor (on any device) is copied to
     the host; anything else goes through ``np.asarray``."""

@@ -6,8 +6,9 @@ resident per-session :class:`CleanState` grows by amortized doubling, every
 block triggers a bounded provisional clean pass with zap alerts (advisory,
 latency first), and end-of-stream runs the canonical pipeline on the
 completed cube, so the authoritative mask stays identical to the numpy
-oracle by construction (``online/finalize.py``).  The block wire codec of
-the daemon's session API belongs to the service slice (ROADMAP.md queue A).
+oracle by construction (``online/finalize.py``).  ``online/blocks.py`` is
+the block wire format of the serving daemon's session API
+(``service/sessions.py``).
 """
 
 from iterative_cleaner_tpu_torch.online.finalize import FinalizedSession, finalize_session

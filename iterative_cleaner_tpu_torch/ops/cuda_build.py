@@ -57,14 +57,42 @@ def find_nvcc() -> str:
         "the CUDA kernels are built from source at first use")
 
 
+def keyed_library(name: str, data: bytes, flags, build_dir: Path = BUILD_DIR) -> Path:
+    """``<build_dir>/lib<name>-<key>.so``, the key a hash of ``data`` (what
+    the build depends on) and the compiler ``flags``."""
+    key = hashlib.sha256(data + " ".join(flags).encode()).hexdigest()[:16]
+    return build_dir / f"lib{name}-{key}.so"
+
+
+def compile_shared(cmd: list[str], out: Path,
+                   timeout: float | None = None) -> subprocess.CompletedProcess:
+    """Run the compiler command ``cmd`` with ``-o`` a temporary name beside
+    ``out``, and rename the library to ``out`` when it succeeds: several
+    processes (the test suite's workers) may build at once, and none may
+    load a half-written file.  Returns the compiler's process; a failed
+    build leaves no file.  Shared by the CUDA kernels and the native host
+    runtime (``native.py``)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    try:
+        proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True, text=True,
+                              timeout=timeout)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    if proc.returncode == 0:
+        os.replace(tmp, out)
+    else:
+        tmp.unlink(missing_ok=True)
+    return proc
+
+
 def library_path(stem: str, defines: tuple[str, ...] = ()) -> Path:
     """The build of ``csrc/<stem>.cu`` under ``defines``, keyed on the
     source, the headers under ``csrc/`` and the flags."""
     text = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{stem}.cu",
                                               *sorted(CSRC_DIR.glob("*.cuh"))])
-    flags = " ".join((*NVCC_FLAGS, *(f"-D{d}" for d in defines)))
-    key = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{stem}-{key}.so"
+    return keyed_library(stem, text, (*NVCC_FLAGS, *(f"-D{d}" for d in defines)))
 
 
 def build(stem: str, defines: tuple[str, ...] = ()) -> Path:
@@ -76,19 +104,16 @@ def build(stem: str, defines: tuple[str, ...] = ()) -> Path:
     out = library_path(stem, defines)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
            str(CSRC_DIR / f"{stem}.cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = compile_shared(cmd, out)
     tracing.observe_kernel_build(time.perf_counter() - t0)
     if proc.returncode != 0:
         raise RuntimeError(
             f"building {stem}.cu failed (nvcc exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
     return out
 
 
@@ -97,12 +122,17 @@ def build_log(stem: str, defines: tuple[str, ...] = ()) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load_library(stem: str) -> ctypes.CDLL:
+def load_library(stem: str, bind=None) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu``, building it first if
-    needed."""
+    needed.  ``bind(lib)`` declares its C interface once, under the same
+    lock as the build and the load: several host threads (the serving
+    daemon's dispatch worker and its session passes) may reach the first
+    launch together, and none may call the library before it is bound."""
     with _lock:
         lib = _loaded.get(stem)
         if lib is None:
             lib = ctypes.CDLL(str(build(stem)))
+            if bind is not None:
+                bind(lib)
             _loaded[stem] = lib
         return lib

@@ -29,6 +29,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -284,35 +285,40 @@ def bind(lib) -> tuple[int, ...]:
     return tuple(got)
 
 
+def _bind_checked(lib) -> None:
+    got = bind(lib)
+    want = (KERNEL_THREADS, KERNEL_CONSUMER_WARPS, KERNEL_MAX_STAGES, KERNEL_HEADER_BYTES,
+            KERNEL_COPY, SMEM_PER_BLOCK)
+    if got != want:
+        raise RuntimeError(
+            "csrc/fused_fit_moments.cu and ops/fused_kernels.py disagree on the launch "
+            "constants (threads, consumer warps, stages, header bytes, copies, shared "
+            f"bytes): {got} against {want}")
+
+
 def _library():
-    lib = load_library("fused_fit_moments")
-    if not getattr(lib, "_ict_bound", False):
-        got = bind(lib)
-        want = (KERNEL_THREADS, KERNEL_CONSUMER_WARPS, KERNEL_MAX_STAGES, KERNEL_HEADER_BYTES,
-                KERNEL_COPY, SMEM_PER_BLOCK)
-        if got != want:
-            raise RuntimeError(
-                "csrc/fused_fit_moments.cu and ops/fused_kernels.py disagree on the launch "
-                "constants (threads, consumer warps, stages, header bytes, copies, shared "
-                f"bytes): {got} against {want}")
-        lib._ict_bound = True
-    return lib
+    return load_library("fused_fit_moments", bind=_bind_checked)
 
 
 #: The tile counters of each (device, stream): two int64, 0 between
 #: launches (the kernel's last block resets them), so a launch needs no
-#: allocation and no memset of its own.
-_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+#: allocation and no memset of its own.  Launches on one stream run one
+#: after another, so one pair serves every host thread that launches there
+#: (the serving daemon's dispatch worker and its session passes); the lock
+#: makes the first two launches of a stream share one pair.
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}  # ict: guarded-by(_COUNTERS_LOCK)
+_COUNTERS_LOCK = threading.Lock()
 
 
 def _tile_counters(device: torch.device, stream: int) -> torch.Tensor:
-    counters = _COUNTERS.get((device.index, stream))
-    if counters is None:
-        # Zeroed on ``stream`` (the caller's current stream), before the
-        # launch that first reads it.
-        counters = _COUNTERS[(device.index, stream)] = torch.zeros(2, dtype=torch.int64,
-                                                                   device=device)
-    return counters
+    with _COUNTERS_LOCK:
+        counters = _COUNTERS.get((device.index, stream))
+        if counters is None:
+            # Zeroed on ``stream`` (the caller's current stream), before the
+            # launch that first reads it.
+            counters = _COUNTERS[(device.index, stream)] = torch.zeros(
+                2, dtype=torch.int64, device=device)
+        return counters
 
 
 def launch(plan: FitLaunch, D, template, w0, valid=None, *, pulse_region=(0.0, 0.0, 1.0),
@@ -355,7 +361,8 @@ def launch(plan: FitLaunch, D, template, w0, valid=None, *, pulse_region=(0.0, 0
         raise RuntimeError(
             f"fused_fit_moments launch failed: "
             f"{lib.fused_fit_moments_error_string(err).decode()} (cudaError {err})")
-    fused_fit_moments.launches += 1
+    with _COUNTERS_LOCK:   # launches may come from several host threads
+        fused_fit_moments.launches += 1
     return centred, mean, std, ptp
 
 

@@ -1,9 +1,12 @@
 """Iteration-invariant preprocessing: pscrunch → dedisperse → baseline removal.
 
-A copy of the numpy path of ``iterative_cleaner_tpu/ops/preprocess.py:43-148``:
+A copy of ``iterative_cleaner_tpu/ops/preprocess.py:43-148``:
 weight-independent work that runs once on the host, producing the static
-cube ``D:(nsub, nchan, nbin) float32`` the iteration loop reads.  The native
-C++ route of the JAX package (``prefer_native``) is not ported.
+cube ``D:(nsub, nchan, nbin) float32`` the iteration loop reads.  As in the
+JAX package, :func:`preprocess` prefers the native C++/OpenMP route
+(:mod:`..native`, bit-identical) when its library builds, and takes the
+numpy path otherwise; the route taken is counted in :mod:`..obs.tracing`
+(``preprocess_native`` / ``preprocess_numpy``).
 
 Semantics (documented divergences from PSRCHIVE, shared by both packages):
 
@@ -26,6 +29,7 @@ from iterative_cleaner_tpu_torch.io.base import (
     STATE_INTENSITY,
     STATE_STOKES,
 )
+from iterative_cleaner_tpu_torch.obs import tracing
 
 # PSRCHIVE's inverse dispersion constant: delay[s] = DM / 2.41e-4 * f^-2[MHz].
 DM_CONST = 1.0 / 2.41e-4
@@ -91,9 +95,20 @@ def remove_baseline(cube: np.ndarray, weights: np.ndarray, frac: float = BASELIN
     return out
 
 
-def preprocess(archive: Archive) -> tuple[np.ndarray, np.ndarray]:
+def preprocess(archive: Archive, prefer_native: bool = True) -> tuple[np.ndarray, np.ndarray]:
     """Archive → (D, w0): the pscrunched, dedispersed, baseline-removed
-    float32 cube (nsub, nchan, nbin) and the frozen original weights."""
+    float32 cube (nsub, nchan, nbin) and the frozen original weights.
+
+    Uses the C++/OpenMP host runtime when it builds (bit-identical output,
+    ``tests/test_torch_native.py``); falls back to the numpy path."""
+    if prefer_native:
+        from iterative_cleaner_tpu_torch import native
+
+        out = native.preprocess_native(archive)
+        if out is not None:
+            tracing.count("preprocess_native")
+            return out
+    tracing.count("preprocess_numpy")
     cube = pscrunch(archive.data, archive.state).astype(np.float32)
     if not archive.dedispersed:
         shifts = dispersion_shifts(

@@ -25,6 +25,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import threading
 
 import torch
 
@@ -143,29 +144,29 @@ def plan_for(D: torch.Tensor, weights: torch.Tensor, init: torch.Tensor | None =
     return plan, w
 
 
+def _bind(lib) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.ordered_template_launch.argtypes = [p] * 4 + [i64, i32, i32, i64, i64, i32, p]
+    lib.ordered_template_launch.restype = i32
+    lib.ordered_template_chain_probe.argtypes = [p, p, i64, ctypes.c_float, p]
+    lib.ordered_template_chain_probe.restype = i32
+    lib.ordered_template_error_string.argtypes = [i32]
+    lib.ordered_template_error_string.restype = ctypes.c_char_p
+    lib.ordered_template_constants.argtypes = [p]
+    lib.ordered_template_constants.restype = None
+    got = (ctypes.c_int * 5)()
+    lib.ordered_template_constants(got)
+    want = (TEMPLATE_THREADS, TEMPLATE_BINS_PER_BLOCK, TEMPLATE_ROWS_PER_STAGE,
+            TEMPLATE_STAGES, TEMPLATE_SMEM_BYTES)
+    if tuple(got) != want:
+        raise RuntimeError(
+            "csrc/ordered_template.cu and ops/template.py disagree on the launch "
+            f"constants (threads, bins, rows, stages, shared bytes): {tuple(got)} "
+            f"against {want}")
+
+
 def _library():
-    lib = load_library("ordered_template")
-    if not getattr(lib, "_ict_bound", False):
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ordered_template_launch.argtypes = [p] * 4 + [i64, i32, i32, i64, i64, i32, p]
-        lib.ordered_template_launch.restype = i32
-        lib.ordered_template_chain_probe.argtypes = [p, p, i64, ctypes.c_float, p]
-        lib.ordered_template_chain_probe.restype = i32
-        lib.ordered_template_error_string.argtypes = [i32]
-        lib.ordered_template_error_string.restype = ctypes.c_char_p
-        lib.ordered_template_constants.argtypes = [p]
-        lib.ordered_template_constants.restype = None
-        got = (ctypes.c_int * 5)()
-        lib.ordered_template_constants(got)
-        want = (TEMPLATE_THREADS, TEMPLATE_BINS_PER_BLOCK, TEMPLATE_ROWS_PER_STAGE,
-                TEMPLATE_STAGES, TEMPLATE_SMEM_BYTES)
-        if tuple(got) != want:
-            raise RuntimeError(
-                "csrc/ordered_template.cu and ops/template.py disagree on the launch "
-                f"constants (threads, bins, rows, stages, shared bytes): {tuple(got)} "
-                f"against {want}")
-        lib._ict_bound = True
-    return lib
+    return load_library("ordered_template", bind=_bind)
 
 
 def _raise_for(lib, err: int, what: str) -> None:
@@ -210,12 +211,14 @@ def build_template(D: torch.Tensor, weights: torch.Tensor,
                 out.data_ptr(), plan.nprof, plan.nbin, plan.narch, plan.d_arch_stride,
                 plan.w_arch_stride, PATHS.index(plan.path), stream)
     _raise_for(lib, err, "ordered_template launch")
-    build_template.launches += 1
+    with _LAUNCHES_LOCK:   # launches may come from several host threads
+        build_template.launches += 1
     return out
 
 
 #: Kernel launches since the last reset (plain-version calls never count).
 build_template.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def build_templates(Db: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,10 @@ dispatches of at most ``parallel/autoshard.archives_per_dispatch`` archives
 dispatcher's default bucket size is that count for the shape.  An archive
 whose own working set does not fit is reported as its item's error, naming
 the sequential route that streams it through the card.  An out-of-memory
-error is never caught and retried smaller.  The compile-cache notes and the
-daemon's convergence forensics (``want_history``) have no counterpart here
-yet.
+error is never caught and retried smaller.  ``want_history`` derives each
+item's per-iteration forensics records and termination reason (the serving
+daemon's ``GET /jobs/<id>/trace``).  The JAX package's compile-cache notes
+have no counterpart: PyTorch does not compile per shape.
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ from itertools import islice
 import numpy as np
 
 from iterative_cleaner_tpu_torch.config import CleanConfig
+from iterative_cleaner_tpu_torch.core.cleaner import _iteration_info
 from iterative_cleaner_tpu_torch.io.base import Archive, get_io
 from iterative_cleaner_tpu_torch.models.surgical import finalize_weights
+from iterative_cleaner_tpu_torch.obs import forensics
 from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
 from iterative_cleaner_tpu_torch.parallel.autoshard import archives_per_dispatch
 from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
@@ -45,6 +48,10 @@ class BatchItem:
     converged: bool = False
     rfi_frac: float = 0.0
     error: str | None = None
+    # Convergence forensics (filled only when the dispatcher ran with
+    # want_history — the serving daemon's per-job timeline source).
+    iterations: list | None = None      # list[IterationInfo]
+    termination: str = ""               # "fixed_point" | "cycle" | "max_iter"
 
 
 def _load_and_preprocess(path: str):
@@ -60,7 +67,8 @@ def _require_torch_backend(cfg: CleanConfig) -> None:
             "use driver.run() without sharded_batch for the sequential numpy path")
 
 
-def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None) -> None:
+def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None,
+                   want_history=False) -> None:
     """Clean one same-shape bucket and write the results into its
     BatchItems.  ``cubes`` and ``w0s`` are lists the caller hands over: each
     dispatch's entries are released once it returns.  The bucket goes in
@@ -70,7 +78,10 @@ def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None) -> None:
     finished archive — the streaming driver emits outputs there and
     releases the item's host arrays, which is what makes its memory bound
     real.  ``rfi_frac`` is the mask before the bad-parts sweep, which runs
-    only when a flag differs from 1."""
+    only when a flag differs from 1.  ``want_history`` additionally fetches
+    the per-archive mask histories and derives each item's per-iteration
+    forensics records and termination reason (off by default — extra host
+    traffic)."""
     shape = tuple(np.shape(cubes[0]))
     k = archives_per_dispatch(shape, cfg, mesh.device)
     if k == 0:
@@ -86,7 +97,8 @@ def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None) -> None:
     k = len(idxs) if k is None else k
     for lo in range(0, len(idxs), k):
         hi = min(lo + k, len(idxs))
-        test_b, w_b, loops_b, done_b = sharded_clean(cubes[lo:hi], w0s[lo:hi], cfg, mesh)
+        out = sharded_clean(cubes[lo:hi], w0s[lo:hi], cfg, mesh, want_history=want_history)
+        test_b, w_b, loops_b, done_b = out[:4]
         cubes[lo:hi] = w0s[lo:hi] = [None] * (hi - lo)
         for j in range(hi - lo):
             item = items[idxs[lo + j]]
@@ -95,6 +107,11 @@ def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None) -> None:
             item.test_results = test_b[j]
             item.loops = int(loops_b[j])
             item.converged = bool(done_b[j])
+            if want_history:
+                hist = out[5][j][: int(out[4][j]) + 1]
+                item.iterations = [_iteration_info(k, hist[k - 1], hist[k])
+                                   for k in range(1, len(hist))]
+                item.termination = forensics.termination_reason(item.converged, hist)
             if on_item is not None:
                 on_item(idxs[lo + j], item)
 

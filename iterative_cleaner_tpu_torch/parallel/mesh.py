@@ -7,8 +7,9 @@ collectives.  The port runs the directory batch on one card, where the
 batch is a leading archive axis and needs no mesh; :func:`factor_mesh` is
 kept as it is, and :func:`make_mesh` builds the one-device mesh the batch
 runs on.  A mesh over more than one device (``dp`` over several local
-cards, ``sp``/``tp`` sharding with NCCL) is ROADMAP.md queue A item 1 and
-raises until it lands — it never quietly runs on one card.
+cards, ``sp``/``tp`` sharding with NCCL) is queued in ROADMAP.md (queue
+A, several cards) and raises until it lands — it never quietly runs on one
+card.
 """
 
 from __future__ import annotations
@@ -75,6 +76,6 @@ def make_mesh(n_devices: int | None = None, dp: int | None = None, sp: int | Non
     if n_devices > 1:
         raise NotImplementedError(
             f"a mesh over {n_devices} devices (dp={dp}, sp={sp}, tp={tp}) is not ported "
-            "yet (ROADMAP.md queue A item 1: dp over several local cards, sp/tp sharding "
+            "yet (ROADMAP.md queue A, several cards: dp over local cards, sp/tp sharding "
             "with NCCL); the port's batch runs on one device")
     return Mesh(devices=devices, shape=dict(zip(AXES, (dp, sp, tp))))

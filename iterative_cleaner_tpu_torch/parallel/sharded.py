@@ -27,8 +27,9 @@ branches), and neither does the port.
 Archives are bucketed by *exact* shape.  Zero-weight padding is not
 mask-transparent — padded profiles would still enter the mask-blind FFT
 diagnostic's plain medians and change real archives' masks — so a batch is
-never padded.  The daemon's ``want_history`` forensics fetch belongs to the
-service slice (ROADMAP.md queue A).
+never padded.  ``sharded_clean(want_history=True)`` also fetches the
+per-archive iteration counts and the populated prefix of the mask
+history: the serving daemon's convergence forensics.
 """
 
 from __future__ import annotations
@@ -144,7 +145,7 @@ def sharded_clean_single(D: np.ndarray, w0: np.ndarray, cfg: CleanConfig, mesh=N
     return test[0], w[0], int(loops[0]), bool(done[0])
 
 
-def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None):
+def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None, want_history: bool = False):
     """Clean a same-shape batch of preprocessed cubes in one dispatch.
 
     ``Db`` (a, nsub, nchan, nbin) and ``w0b`` (a, nsub, nchan): stacked host
@@ -152,7 +153,12 @@ def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None):
     CUDA device (``make_mesh()``; raises without a card).  The route is the
     kernel's wherever ``resolve_use_kernel`` puts a clean of this shape on
     the device.  Returns host arrays: (test (a,s,c), weights (a,s,c), loops
-    (a,), converged (a,)), fetched together once at the end.
+    (a,), converged (a,)), fetched together once at the end — plus, with
+    ``want_history`` (the serving daemon's convergence forensics), the
+    per-archive iteration counts (a,) and the mask histories
+    (a, max(x) + 1, s, c), rows 0..x[j] of archive j populated (row 0 =
+    w0).  Only the populated prefix is fetched, and only on request: it is
+    extra host traffic the default path does not pay.
     """
     if mesh is None:
         from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
@@ -165,12 +171,20 @@ def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None):
         Dt, w0t, w0t != 0, float(cfg.chanthresh), float(cfg.subintthresh),
         max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
         use_kernel=kernel_for(cfg, nbin, dev))
-    del Dt, _hist
-    # One fetch: loops and done are small integers, exact in float32.
-    packed = torch.cat((test.reshape(-1), w_final.reshape(-1),
-                        loops.to(test.dtype), done.to(test.dtype))).cpu().numpy()
+    del Dt
+    # One fetch: loops, done and x are small integers, exact in float32.
+    parts = [test.reshape(-1), w_final.reshape(-1), loops.to(test.dtype),
+             done.to(test.dtype)]
+    if want_history:
+        parts.append(_x.to(test.dtype))
+    packed = torch.cat(parts).cpu().numpy()
     n = narch * nsub * nchan
-    return (packed[:n].reshape(narch, nsub, nchan),
-            packed[n:2 * n].reshape(narch, nsub, nchan).copy(),
-            packed[2 * n:2 * n + narch].astype(np.int64),
-            packed[2 * n + narch:].astype(bool))
+    out = (packed[:n].reshape(narch, nsub, nchan),
+           packed[n:2 * n].reshape(narch, nsub, nchan).copy(),
+           packed[2 * n:2 * n + narch].astype(np.int64),
+           packed[2 * n + narch:2 * n + 2 * narch].astype(bool))
+    if not want_history:
+        return out
+    x = packed[2 * n + 2 * narch:].astype(np.int64)
+    hist = _hist[:, : int(x.max()) + 1].cpu().numpy()
+    return (*out, x, hist)

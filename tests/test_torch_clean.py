@@ -393,7 +393,7 @@ class TestDataAndIO:
         back = JaxNpzIO().load(str(tmp_path / "p.npz"))
         assert back.data.tobytes() == ar.data.tobytes() and back.source == ar.source
 
-    @pytest.mark.parametrize("path", ["x.ictb", "x.ar", "x.fits"])
+    @pytest.mark.parametrize("path", ["x.ar", "x.fits"])
     def test_unported_formats_raise(self, path):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_io(path).load(path)
@@ -467,11 +467,10 @@ class TestImportHygiene:
                 assert top not in ("jax", "jaxlib", "iterative_cleaner_tpu"), \
                     f"{path.name}:{node.lineno} imports {name}"
 
-    def test_cli_import_leaves_no_jax_in_sys_modules(self):
-        # Every module of the port, the CLI's among them.
-        mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
-            ".__init__") for p in _py_files() if p.name not in ("chip_smoke.py", "__main__.py"))
-        assert "iterative_cleaner_tpu_torch.obs.profiling" in mods
+    @staticmethod
+    def _no_jax_after_importing(mods):
+        """Import ``mods`` in a fresh interpreter; no module of JAX or of the
+        JAX package may be in ``sys.modules`` afterwards."""
         code = ("import importlib, sys\n"
                 f"for m in {mods!r}:\n    importlib.import_module(m)\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -481,3 +480,16 @@ class TestImportHygiene:
         proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                               env=env, cwd=str(REPO), timeout=120)
         assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    def test_cli_import_leaves_no_jax_in_sys_modules(self):
+        # Every module of the port, the CLI's among them.
+        mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__") for p in _py_files() if p.name not in ("chip_smoke.py", "__main__.py"))
+        assert "iterative_cleaner_tpu_torch.obs.profiling" in mods
+        self._no_jax_after_importing(mods)
+
+    def test_service_import_leaves_no_jax_in_sys_modules(self):
+        # The serving daemon and the native runtime alone, as ``serve``
+        # imports them.
+        self._no_jax_after_importing(["iterative_cleaner_tpu_torch.service.daemon",
+                                      "iterative_cleaner_tpu_torch.native"])
