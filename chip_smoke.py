@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py      # needs one CUDA card; about 10 minutes on an H100
+    python3 chip_smoke.py      # needs one CUDA card; about 11 minutes on an H100
 
 Phases, in order, each with its seconds; any failure raises and the script
 exits non-zero:
@@ -138,7 +138,25 @@ exits non-zero:
    thread: the dispatch worker (``service``), the session's request
    threads (``service_session``), the smoke's replica (``serve_smoke``),
    each above 0, their sum the wrapper's count;
-15. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+15. fleet — the fleet tier (``fleet/``, ``campaign/``, ``proving/``) on the
+   card.  A ``FleetRouter`` in front of two in-process replicas on
+   ``cuda`` (``a`` parks its cubes: deadline 3600 s, bucket cap 8; ``b``
+   drains: bucket cap 2, coalesce 2) takes phase 14's four LOFAR ``.ictb``
+   jobs through ``POST /jobs``; once ``a`` holds its cubes parked and
+   ``b`` has served its own, ``a`` stops and the router fails its jobs
+   over: every job done exactly once, masks, loops and converged the
+   batch phase's, no oracle fallback or demotion, ``/healthz`` backend
+   torch, merged ``/fleet/metrics`` counters equal to the per-replica
+   sums, both kernels launched on the replicas' dispatch threads, the
+   peaks under the card's memory and the allocated bytes back within
+   64 MiB once both replicas stop.  Against its router: ``explain`` (all
+   seven planes), ``trends``, ``campaign`` of the same four archives (all
+   from the fleet cache, no new completion, a QA roll-up and a cost row)
+   and ``tools_torch/fleet_top.py --json``.  Beside it, started with the
+   phase, ``serve-fleet --smoke``, ``serve-fleet --smoke --autoscale
+   act`` and ``prove --smoke``, each the port's CLI in a process of its
+   own on the card; the phase within 120 s;
+16. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the template over the
    whole cube in one launch, timed beside cuBLAS's matrix-vector product,
@@ -150,7 +168,7 @@ exits non-zero:
    which routes it chunked), each with its peak device memory held against
    the estimate or the budget, wall-clock and per-iteration times; masks
    identical;
-16. one JSON line of the kernels (launches per path; the template kernel's
+17. one JSON line of the kernels (launches per path; the template kernel's
    per phase, each phase's count above 0), then ``{"ok": true, "device":
    ...}`` last.
 
@@ -2933,6 +2951,320 @@ def phase_service(lofar, card) -> tuple[dict, dict]:
             {k: paths_by["ordered_template"][k] for k in keep})
 
 
+#: The fleet phase's replicas: ``a`` parks its cubes, ``b`` drains.
+FLEET_REPLICAS = ("fleet-a", "fleet-b")
+#: The fleet's three smokes, each the port's CLI in a process of its own on
+#: the card: (label, arguments after ``python -m iterative_cleaner_tpu_torch``).
+FLEET_SMOKES = (
+    ("serve-fleet --smoke", ["serve-fleet", "--smoke", "-q"]),
+    ("serve-fleet --smoke --autoscale act", ["serve-fleet", "--smoke", "--autoscale", "act", "-q"]),
+    ("prove --smoke", ["prove", "--smoke", "-q"]),
+)
+#: How far the card's allocated bytes may stay above their value before the
+#: fleet phase once its replicas have stopped.
+FLEET_MEMORY_SLACK = 64 << 20
+#: The fleet phase's time limit, the smokes included.
+FLEET_PHASE_S = 120
+
+
+def _main_line(main, argv) -> tuple[int, str]:
+    """A sub-command's rc and its standard output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def _start_smokes(work):
+    """Start the fleet's three smokes together, each in its own process;
+    returns {label: (process, start, stdout path, stderr path)}."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = {}
+    for i, (label, argv) in enumerate(FLEET_SMOKES):
+        out, err = (os.path.join(work, f"smoke{i}.{k}") for k in ("out", "err"))
+        with open(out, "w") as fo, open(err, "w") as fe:
+            proc = subprocess.Popen([sys.executable, "-m", "iterative_cleaner_tpu_torch", *argv],
+                                    stdout=fo, stderr=fe, env=env, cwd=work)
+        procs[label] = (proc, time.perf_counter(), out, err)
+    return procs
+
+
+def _finish_smokes(procs, timeout_s: float) -> None:
+    """Wait for the smokes (each one's seconds to its exit), check each
+    verdict and print its line; kill any still running."""
+    deadline = time.perf_counter() + timeout_s
+    ends = {}
+    try:
+        while len(ends) < len(procs):
+            check(time.perf_counter() < deadline,
+                  f"{sorted(set(procs) - set(ends))} still running after {timeout_s:.0f}s")
+            for label, (proc, *_rest) in procs.items():
+                if label not in ends and proc.poll() is not None:
+                    ends[label] = time.perf_counter()
+            time.sleep(0.05)
+        for label, (proc, t0, out, err) in procs.items():
+            with open(out) as fh:
+                lines = fh.read().strip().splitlines()
+            with open(err) as fh:
+                tail = fh.read()[-4000:]
+            check(proc.returncode == 0 and lines, f"{label}: rc {proc.returncode}\n{tail}")
+            said = json.loads(lines[-1])
+            want = "pass" if label.startswith("prove") else "ok"
+            check(said.get("prove", said.get("smoke")) == want, f"{label}: {lines[-1]}\n{tail}")
+            if "autoscale" in label:
+                check(said["scaled_up"] and said["scaled_down"], f"{label}: did not scale up and down")
+            log(f"  {label}: {ends[label] - t0:.1f}s, {lines[-1]}")
+    finally:
+        _kill_smokes(procs)
+
+
+def _kill_smokes(procs) -> None:
+    for proc, *_rest in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_fleet(lofar, card) -> tuple[dict, dict]:
+    """The fleet tier on the card: a router in front of two replicas takes
+    the service phase's four LOFAR ``.ictb`` jobs through a failover; the
+    ``explain``, ``trends`` and ``campaign`` sub-commands and ``fleet_top``
+    against it; the three smokes in processes of their own."""
+    import gc
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.fleet import explain as fleet_explain
+    from iterative_cleaner_tpu_torch.fleet.router import (
+        FleetConfig,
+        FleetRouter,
+        _merged_counters_equal,
+    )
+    from iterative_cleaner_tpu_torch.obs import metrics as obs_metrics
+    from iterative_cleaner_tpu_torch.obs import tracing
+    from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+    from iterative_cleaner_tpu_torch.ops import template as tp
+    from iterative_cleaner_tpu_torch.service import CleaningService, ServeConfig
+    from iterative_cleaner_tpu_torch.service.jobs import TERMINAL
+    from iterative_cleaner_tpu_torch.service.worker import DispatchWorker
+
+    t_phase = time.perf_counter()
+    nsub, nchan = LOFAR[0], LOFAR[1]
+    root = os.path.dirname(lofar["path"])
+    work = os.path.join(root, "fleet")
+    os.makedirs(work)
+    paths = [os.path.join(root, "service", "lofar_seed42.ictb"), *lofar["service_paths"]]
+    refs = dict(zip(paths, lofar["service_refs"]))
+    check(len(refs) == SERVICE_JOBS and all(os.path.exists(p) for p in paths),
+          "the service phase's .ictb archives are missing")
+    smokes = _start_smokes(work)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    limit = torch.cuda.get_device_properties(0).total_memory
+    snap = tracing.snapshot()
+    counters0 = tracing.counters_snapshot()
+    # The router hashes a submitted file for its result cache only below
+    # this size; a LOFAR .ictb is 1.07 GB.
+    saved_max = os.environ.get("ICT_FLEET_CACHE_MAX_BYTES")
+    os.environ["ICT_FLEET_CACHE_MAX_BYTES"] = str(4 << 30)
+    dispatches = {}
+    real_dispatch = DispatchWorker._dispatch_sharded
+
+    def counted(self, entries):
+        dispatches.setdefault(threading.current_thread().name, []).append(len(entries))
+        return real_dispatch(self, entries)
+
+    def serve_cfg(tag, **kw):
+        return ServeConfig(spool_dir=os.path.join(work, f"spool_{tag}"), port=0, replica_id=tag,
+                           quiet=True, device="cuda",
+                           clean=CleanConfig(backend="torch", quiet=True, no_log=True), **kw)
+
+    def metrics_text(base):
+        with urllib.request.urlopen(base + "/fleet/metrics", timeout=60) as resp:
+            return resp.read().decode()
+
+    fk.fused_fit_moments.launches = tp.build_template.launches = 0
+    DispatchWorker._dispatch_sharded = counted
+    svcs = []
+    router = None
+    try:
+        with _launches_by_thread() as tally:
+            svc_a = CleaningService(serve_cfg(FLEET_REPLICAS[0], deadline_s=3600.0, bucket_cap=8))
+            svcs.append(svc_a)
+            svc_a.start()
+            svc_b = CleaningService(serve_cfg(FLEET_REPLICAS[1], deadline_s=1.0, bucket_cap=2,
+                                              coalesce=2))
+            svcs.append(svc_b)
+            svc_b.start()
+            urls = [f"http://127.0.0.1:{s.port}" for s in svcs]
+            router = FleetRouter(FleetConfig(
+                replicas=tuple(urls), port=0, poll_interval_s=0.25, dead_after=2, quiet=True,
+                spool_dir=os.path.join(work, "router_spool")))
+            router.start()
+            base = f"http://127.0.0.1:{router.port}"
+            router.poll_tick()
+
+            # (a) Four LOFAR jobs through the router; a dies with its cubes parked.
+            t_submit = time.perf_counter()
+            jobs = {p: _http(base, "/jobs", {"path": p, "shape": list(LOFAR)}) for p in paths}
+            submit_s = time.perf_counter() - t_submit
+            on_a = [p for p, j in jobs.items() if j["replica_id"] == FLEET_REPLICAS[0]]
+            check(0 < len(on_a) < len(paths),
+                  f"placements {[j['replica_id'] for j in jobs.values()]}: want both replicas")
+            # Stop a once its cubes are parked and b has served its own.
+            deadline = time.perf_counter() + 300
+            while (_http(urls[0], "/healthz").get("bucketed_cubes", 0) < len(on_a)
+                   or any(_http(base, f"/jobs/{j['id']}")["state"] not in TERMINAL
+                          for p, j in jobs.items() if p not in on_a)):
+                check(time.perf_counter() < deadline, "replica a never parked its cubes, or "
+                      "replica b never served its own")
+                time.sleep(0.05)
+            check(_http(urls[0], "/healthz")["backend"] == "torch", "replica a is not on torch")
+            router.poll_tick()
+            torch.cuda.synchronize()
+            peak_both = torch.cuda.max_memory_allocated()
+            t_kill = time.perf_counter()
+            svc_a.stop()
+            while router.metrics.counter_total("fleet_failovers_total") < 1:
+                check(time.perf_counter() - t_kill < 120, "no failover within 120 s")
+                time.sleep(0.01)
+            failover_s = time.perf_counter() - t_kill
+            while True:
+                states = {p: _http(base, f"/jobs/{j['id']}") for p, j in jobs.items()}
+                if all(s["state"] in TERMINAL for s in states.values()):
+                    break
+                check(time.perf_counter() - t_submit < 600, "fleet jobs not terminal in 600 s")
+                time.sleep(0.05)
+            jobs_s = time.perf_counter() - t_submit
+            for p, st in states.items():
+                w, loops, done = refs[p]
+                check(st["state"] == "done" and st["served_by"] == "sharded",
+                      f"fleet job {p}: {st['state']} via {st.get('served_by')!r}: {st.get('error')}")
+                check(np.array_equal(_ictb_weights(st["out_path"], nsub, nchan), w)
+                      and (st["loops"], st["converged"]) == (loops, done),
+                      f"fleet job {p}: mask, loops or converged differ from the batch phase's")
+            torch.cuda.synchronize()
+            peak_after = torch.cuda.max_memory_allocated()
+            health_b = _http(urls[1], "/healthz")
+            check(health_b["backend"] == "torch", f"replica b /healthz backend {health_b['backend']!r}")
+            failovers = router.metrics.counter_total("fleet_failovers_total")
+            completed = router.metrics.counter_value("fleet_jobs_completed_total", {"state": "done"})
+            done_delta = tracing.delta(snap, "service_jobs_done")
+            check(done_delta == len(paths) and completed == len(paths) and failovers >= 1,
+                  f"exactly once: {done_delta:.0f} replica completions, {completed:.0f} fleet "
+                  f"completions, {failovers:.0f} failovers for {len(paths)} jobs")
+            counters = tracing.counters_snapshot()
+            for name in ("service_oracle_fallbacks", "service_backend_demotions"):
+                check(counters.get(name, 0.0) == counters0.get(name, 0.0),
+                      f"{name} moved: the card was bypassed")
+            fams = obs_metrics.parse_exposition(metrics_text(base))
+            check(_merged_counters_equal(fams),
+                  "/fleet/metrics: merged counters differ from the per-replica sums")
+            check(peak_both < limit and peak_after < limit,
+                  f"peak device memory {peak_both} / {peak_after} B over the card's {limit} B")
+            log(f"{len(paths)} LOFAR .ictb jobs through the router: submitted in {submit_s:.2f}s, "
+                f"all done in {jobs_s:.2f}s; submit to done per job "
+                + ", ".join(f"{s['finished_s'] - s['submitted_s']:.2f}" for s in states.values())
+                + f" s; {len(on_a)} parked on {FLEET_REPLICAS[0]} failed over "
+                f"{failover_s:.2f}s after its stop; masks, loops and converged identical to the "
+                f"batch phase's; {failovers:.0f} failovers, {done_delta:.0f} completions ({card})")
+            log("  dispatches per replica (cubes each): " + ", ".join(
+                f"{name.rsplit('-', 1)[-1]} {sizes}" for name, sizes in sorted(dispatches.items()))
+                + f"; peak device memory with both replicas alive (b's own jobs served, a's "
+                f"parked) {peak_both / 2**30:.2f} GiB, over the whole lane "
+                f"{peak_after / 2**30:.2f} GiB, of {limit / 2**30:.1f} GiB (each replica sizes "
+                "its buckets against the whole card)")
+            log("  0 oracle fallbacks, 0 demotions, /healthz backend torch on both replicas, "
+                "merged /fleet/metrics counters equal the per-replica sums")
+
+            # (b) The sub-commands against the lane's router.
+            exp_id = jobs[next(p for p in paths if p not in on_a)]["id"]
+            rc, out = _main_line(cli.main, ["explain", exp_id, "--router", base, "--json"])
+            report = json.loads(out.strip().splitlines()[-1])
+            check(rc == 0 and set(report.get("planes") or {}) == set(fleet_explain.PLANES),
+                  f"explain: rc {rc}, planes {sorted(report.get('planes') or {})}")
+            rc, out = _main_line(cli.main, ["trends", "--router", base])
+            check(rc == 0, f"trends: rc {rc}")
+            manifest = os.path.join(work, "campaign.json")
+            with open(manifest, "w") as fh:
+                json.dump({"name": "chip-smoke", "tenant": "survey", "archives": paths}, fh)
+            done0 = tracing.counters_snapshot().get("service_jobs_done", 0)
+            t0 = time.perf_counter()
+            rc, out = _main_line(cli.main, ["campaign", manifest, "--router", base, "--poll_s",
+                                            "0.1", "--timeout_s", "120", "--json", "-q"])
+            campaign_s = time.perf_counter() - t0
+            view = json.loads(out.strip().splitlines()[-1])
+            moved = tracing.counters_snapshot().get("service_jobs_done", 0) - done0
+            cost, rollup = view.get("cost") or {}, view.get("rollup") or {}
+            check(rc == 0 and view["state"] == "done"
+                  and view["archives"]["done"] == len(paths) and moved == 0
+                  and cost.get("cache_hits") == len(paths) and rollup.get("jobs") == len(paths)
+                  and cost.get("jobs_costed") == len(paths),
+                  f"campaign: rc {rc}, state {view.get('state')}, archives {view.get('archives')}, "
+                  f"{moved:.0f} new completions, cost {cost}, rollup jobs {rollup.get('jobs')}")
+            top = subprocess.run([sys.executable, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "tools_torch", "fleet_top.py"),
+                "--router", base, "--json"], capture_output=True, text=True, timeout=120)
+            check(top.returncode == 0 and json.loads(top.stdout)["router_id"] == router.router_id,
+                  f"fleet_top: rc {top.returncode}\n{top.stderr[-2000:]}")
+            log(f"  explain {exp_id}: rc 0, planes {sorted(report['planes'])}; trends: rc 0; "
+                f"campaign of the same {len(paths)} archives: done in {campaign_s:.2f}s, "
+                f"{cost['cache_hits']} fleet-cache hits, 0 new completions, QA roll-up of "
+                f"{rollup['jobs']} jobs, cost row device_s {cost.get('device_s')} avoided "
+                f"{cost.get('avoided_device_s')}; tools_torch/fleet_top.py --json: rc 0")
+            totals = {"fused_fit_moments": fk.fused_fit_moments.launches,
+                      "ordered_template": tp.build_template.launches}
+    except BaseException:
+        _kill_smokes(smokes)
+        raise
+    finally:
+        if router is not None:
+            router.stop()
+        for s in svcs:
+            s.stop()
+        DispatchWorker._dispatch_sharded = real_dispatch
+        if saved_max is None:
+            os.environ.pop("ICT_FLEET_CACHE_MAX_BYTES")
+        else:
+            os.environ["ICT_FLEET_CACHE_MAX_BYTES"] = saved_max
+
+    del svcs, svc_a, svc_b, router
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(mem1 - mem0 <= FLEET_MEMORY_SLACK,
+          f"device memory after the fleet stopped: {mem1} B, {mem0} B before the phase")
+    log(f"  device memory allocated before the phase {mem0 / 2**20:.1f} MiB, after both replicas "
+        f"stopped {mem1 / 2**20:.1f} MiB")
+    paths_by = {}
+    for kernel, counts in tally.items():
+        check(sum(counts.values()) == totals[kernel],
+              f"{kernel}: {sum(counts.values())} launches tallied by thread, the wrapper "
+              f"counted {totals[kernel]}")
+        fleet = sum(n for name, n in counts.items()
+                    if name.startswith("ict-serve-dispatch-fleet-"))
+        check(fleet > 0, f"{kernel} was launched no time on the replicas' dispatch threads")
+        paths_by[kernel] = {"fleet": fleet}
+        log(f"  {kernel} launches by thread: {dict(sorted(counts.items()))}")
+
+    # (c) The three smokes, started with the phase.
+    _finish_smokes(smokes, 300)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= FLEET_PHASE_S, f"the fleet phase took {phase_s:.1f}s, over {FLEET_PHASE_S}s")
+    return {"fleet": paths_by["fused_fit_moments"]["fleet"]}, {
+        "fleet": paths_by["ordered_template"]["fleet"]}
+
+
 def _host_available_bytes() -> int:
     with open("/proc/meminfo") as fh:
         for line in fh:
@@ -3186,6 +3518,9 @@ def main() -> int:
         fit_service, template_service = timed_counted("service", phase_service, lofar, card)
         by_path.update(fit_service)
         template_by_path.update(template_service)
+        fit_fleet, template_fleet = timed("fleet", phase_fleet, lofar, card)
+        by_path.update(fit_fleet)
+        template_by_path.update(template_fleet)
         del lofar
     by_path.update(timed_counted("north star", phase_north_star, entry,
                                  entries["ordered_template"]))

@@ -9,8 +9,13 @@ Port of ``iterative_cleaner_tpu/cli.py``: the reference flag surface
 ``--alert_iters``), ``--sweep``, ``--audit``, ``--dump_masks``, ``--report``,
 ``--telemetry`` and ``--trace``.  ``-z`` and the JAX package's other
 extensions are not yet ported.  The exit code is 1 when any archive failed,
-2 for a usage error.  ``serve`` as the first argument runs the serving
-daemon (``service/daemon.serve_main``, also ``ict-serve-torch``).
+2 for a usage error.  A sub-command as the first argument runs instead of
+a clean (the JAX ``cli.py`` dispatch): ``serve`` the serving daemon
+(``service/daemon.serve_main``, also ``ict-serve-torch``), ``serve-fleet``
+the fleet router (``fleet/router.fleet_main``, also
+``ict-serve-fleet-torch``), ``campaign`` the campaign follow client,
+``prove`` the proving ground, ``explain`` a job's causal report and
+``trends`` the router's performance trends.
 
 Every run mints a trace id and wraps its work in the ``cli_run`` span, so
 the events of one invocation share it (``--telemetry`` / ``ICT_TELEMETRY``
@@ -208,17 +213,30 @@ def parse_sweep_pairs(specs: list[str]) -> list[tuple[float, float]]:
     return pairs
 
 
+#: Sub-command -> (module under the package, its ``main(argv)``).
+SUBCOMMANDS = {
+    "serve": ("service.daemon", "serve_main"),
+    "serve-fleet": ("fleet.router", "fleet_main"),
+    "campaign": ("campaign.cli", "campaign_main"),
+    "prove": ("proving.soak", "prove_main"),
+    "explain": ("fleet.explain", "explain_main"),
+    "trends": ("fleet.trends", "trends_main"),
+}
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] == "serve" and not os.path.isfile("serve"):
-        # The long-running cleaning daemon (service/daemon.py).  Dispatched
-        # on the literal first token — unless a regular FILE named "serve"
-        # exists in cwd (a directory can never be an archive positional),
-        # in which case the reference semantics win; the
-        # ``ict-serve-torch`` script is the unambiguous entry point.
-        from iterative_cleaner_tpu_torch.service.daemon import serve_main
+    if argv and argv[0] in SUBCOMMANDS and not os.path.isfile(argv[0]):
+        # Dispatched on the literal first token — unless a regular FILE of
+        # that name exists in cwd (a directory can never be an archive
+        # positional), in which case the reference semantics win; the
+        # ``ict-serve-torch`` / ``ict-serve-fleet-torch`` scripts are the
+        # unambiguous entry points.
+        import importlib
 
-        return serve_main(argv[1:])
+        module, func = SUBCOMMANDS[argv[0]]
+        mod = importlib.import_module(f"iterative_cleaner_tpu_torch.{module}")
+        return getattr(mod, func)(argv[1:])
     args = build_parser().parse_args(argv)
     try:
         cfg = config_from_args(args)
