@@ -174,12 +174,23 @@ exits non-zero:
    oracle's, the score drift against the oracle and the float32 route, the
    peak under the estimate in 8-byte elements, no ``fused_fit_moments``
    launch and one float64 template launch per dense build;
-17. fuzz — ``tools_torch/fuzz_sweep.py`` on cuda, 16 float32 seeds and 8
+17. contracts — the port's static analysis suite on the card:
+   ``tools_torch/ict_lint.py --source --races`` in a process of its own
+   (rc 0 on this host's Python), then the route contracts
+   (``analysis/contracts.py``) on cuda, every entry point of the stepwise,
+   fused, chunked and batch routes with the kernel route off and on, on the
+   tiny cube and at 256 x 1024 x 1024 on phase 4's cube (the chunked route in
+   32-subint blocks, a batch of 2 LOFAR cubes): each run's CUDA syncs
+   (``torch.cuda.set_sync_debug_mode``) equal to the ledger's reads plus
+   uploads for the iterations it ran, no 64-bit float, and
+   ``sparse_template_candidate`` (``torch.nonzero_static``) at LOFAR width
+   without a sync; both kernels launched; the phase within 30 s;
+18. fuzz — ``tools_torch/fuzz_sweep.py`` on cuda, 16 float32 seeds and 8
    ``--x64`` seeds from 1000 in two processes side by side: rc 0, every
    mode identical to the oracle, the per-mode drift and sparse-update
    counts printed; ``tools_torch/replay_repro.py`` on cuda on a bundle with
    one flipped served cell: cleared, rc 0;
-18. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+19. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the template over the
    whole cube in one launch, timed beside cuBLAS's matrix-vector product,
@@ -191,7 +202,7 @@ exits non-zero:
    which routes it chunked), each with its peak device memory held against
    the estimate or the budget, wall-clock and per-iteration times; masks
    identical;
-19. one JSON line of the kernels (launches per path; the template kernel's
+20. one JSON line of the kernels (launches per path; the template kernel's
    per phase, each phase's count above 0; its float64 instantiation its own
    entry), then ``{"ok": true, "device": ...}`` last.
 
@@ -295,7 +306,10 @@ def phase_environment():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    log(f"device 0: {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible")
+    from iterative_cleaner_tpu_torch.utils.device_probe import init_watchdog
+
+    with init_watchdog("chip smoke cuda init"):
+        log(f"device 0: {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible")
     return card
 
 
@@ -344,7 +358,7 @@ def _time_ms(fn, runs: int) -> float:
     import torch
 
     fn()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
     times = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -364,7 +378,7 @@ def _device_ms(fn, runs: int) -> float:
     import torch
 
     fn()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(2_000_000 * runs)
     a.record()
@@ -470,7 +484,7 @@ def phase_kernel_parity():
         plan = fk.plan_for(D)
         check(plan.path == path, f"{name}: the plan takes the {plan.path} path, not {path}")
         got = fk.fused_fit_moments(D, t, w0, valid, pulse_region=pr)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
         want = fk.fused_fit_moments_plain(D, t, w0, valid, pulse_region=pr)
         max_err = max(max_err, _hold_fit(name, got, want, w0))
         log(f"  {name}: ok, {path} path, {plan.stages} stages x {plan.rows_per_stage} "
@@ -639,7 +653,7 @@ def _batched_kernel_parity(gen) -> dict:
         del parts
         before = fk.fused_fit_moments.launches
         got = fk.fused_fit_moments(Db, tb, wb, vb, pulse_region=pr)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
         check(fk.fused_fit_moments.launches == before + 1, f"{name}: not one launch")
         want = fk.fused_fit_moments_plain(Db, tb, wb, vb, pulse_region=pr)
         for key, g, w in zip(FIT_TOL, got, want):
@@ -742,7 +756,7 @@ def _template_case(name, D, w, *, path, cut=None) -> None:
 
     check(tp.plan_for(D, w)[0].path == path, f"ordered_template {name}: not the {path} path")
     got = tp.build_template(D, w)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
     want = tp.build_template_plain(D, w)
     check(_same_floats(got, want), f"ordered_template {name}: kernel != plain")
     cut = D.shape[0] // 2 if cut is None else cut
@@ -969,7 +983,7 @@ def phase_template_f64():
         check(plan.path == path and plan.rows_per_stage == rows,
               f"float64 ordered_template {name}: plan {plan}")
         got = tp.build_template(D, w)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
         check(got.dtype == f64 and _same_floats(got, tp.build_template_plain(D, w)),
               f"float64 ordered_template {name}: kernel != plain")
         c = shape[0] // 2 if cut is None else cut
@@ -1145,7 +1159,7 @@ def phase_main_path(entries, lofar_prep):
     report_path = os.path.join(tmp, "report.json")
     os.chdir(tmp)   # clean.log goes to the working directory
     try:
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
         fk.fused_fit_moments.launches = tp.build_template.launches = 0
         t0 = time.perf_counter()
         with _recording(torch_backend, "start_precompile") as warm:
@@ -1424,7 +1438,7 @@ def phase_obs(lofar, entries) -> dict:
             check("already running" in str(exc), f"unexpected refusal {exc!r}")
         before = fk.fused_fit_moments.launches
         out = run_fused(D, w0, fcfg)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
         x = fk.fused_fit_moments.launches - before
     finally:
         stopped = profiling.stop(expected_dir=rec["dir"])
@@ -1553,7 +1567,7 @@ def phase_obs(lofar, entries) -> dict:
     # Device memory, the watchdog, the exposition.
     memory.update_process_gauges()
     snap = memory.device_snapshot()
-    total = torch.cuda.mem_get_info()[1]
+    total = torch.cuda.mem_get_info()[1]  # ict: backend-init-ok(phase 1 made CUDA live)
     _, labeled = tracing.gauges_snapshot()
     peak = labeled.get(("route_hbm_peak_bytes", (("route", "stepwise"),)), 0.0)
     check(snap and snap[0]["bytes_limit"] == total, f"device_snapshot {snap}")
@@ -1613,14 +1627,14 @@ def _count_syncs(fn):
 
     import torch
 
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
+    torch.cuda.set_sync_debug_mode("warn")  # ict: backend-init-ok(phase 1 made CUDA live)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             out = fn()
     finally:
-        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.set_sync_debug_mode(0)  # ict: backend-init-ok(phase 1 made CUDA live)
     where = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
              if "synchroniz" in str(w.message)]
     return out, where
@@ -1764,7 +1778,7 @@ def phase_chunked(lofar) -> int:
     del backend, up, made
 
     # Staging through pinned buffers against registering the host cube.
-    cudart = torch.cuda.cudart()
+    cudart = torch.cuda.cudart()  # ict: backend-init-ok(phase 1 made CUDA live)
     host = np.ascontiguousarray(D)
     slab = torch.empty((block, *D.shape[1:]), dtype=torch.float32, device="cuda")
     t0 = time.perf_counter()
@@ -1776,7 +1790,7 @@ def phase_chunked(lofar) -> int:
         t0 = time.perf_counter()
         for lo in range(0, D.shape[0], block):
             slab.copy_(src[lo:lo + block], non_blocking=True)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
         direct_s = time.perf_counter() - t0
     finally:
         cudart.cudaHostUnregister(host.ctypes.data)
@@ -1868,7 +1882,7 @@ def phase_peak_model(lofar) -> None:
             for fused in (False, True):
                 gc.collect()
                 torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
                 base = torch.cuda.memory_allocated()
                 res = clean_cube(Dc, wc, CleanConfig(backend="torch", kernel=kernel,
                                                      fused=fused, auto_shard=False),
@@ -1902,7 +1916,7 @@ def phase_peak_model(lofar) -> None:
         for fused in (False, True):
             gc.collect()
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
             base = torch.cuda.memory_allocated()
             res = clean_cube(Dc, wc, CleanConfig(backend="torch", x64=True, fused=fused,
                                                  auto_shard=False), device="cuda")
@@ -1942,7 +1956,7 @@ def phase_peak_model(lofar) -> None:
     try:
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
         base = torch.cuda.memory_allocated()
         clean_cube(D, w0, CleanConfig(backend="torch", auto_shard=False), device="cuda")
         whole = (torch.cuda.max_memory_allocated() - base) / D.nbytes
@@ -1956,14 +1970,14 @@ def phase_peak_model(lofar) -> None:
     torch.cuda.empty_cache()
     x = torch.from_numpy(D).to("cuda")
     torch.backends.cuda.cufft_plan_cache.clear()
-    torch.cuda.synchronize()
-    free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
-    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
+    free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()  # ict: backend-init-ok(phase 1 made CUDA live)
+    torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
     base = torch.cuda.memory_allocated()
     y = torch.fft.rfft(x, dim=-1)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
     through = torch.cuda.max_memory_allocated() - base - y.numel() * y.element_size()
-    beside = (free0 - torch.cuda.mem_get_info()[0]) - (torch.cuda.memory_reserved() - reserved0)
+    beside = (free0 - torch.cuda.mem_get_info()[0]) - (torch.cuda.memory_reserved() - reserved0)  # ict: backend-init-ok(phase 1 made CUDA live)
     log(f"  one cuFFT R2C over the whole {LOFAR} cube: {through / 1e9:.3f} GB of workspace "
         f"through the caching allocator (counted by max_memory_allocated), "
         f"{beside / 1e9:.3f} GB allocated beside it")
@@ -2130,7 +2144,7 @@ def _batch_library(lofar) -> dict:
     singles, walls = [], []
     one_cfg = cfg.replace(fused=True, incremental_template=False)
     for D, w0 in zip(cubes, w0s):
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
         t0 = time.perf_counter()
         singles.append(run_fused(D, w0, one_cfg))    # (test, w, loops, done, x, history)
         walls.append(time.perf_counter() - t0)
@@ -2146,7 +2160,7 @@ def _batch_library(lofar) -> dict:
     check(k is not None and k >= n, f"{n} LOFAR archives do not fit one dispatch (k={k})")
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
     base = torch.cuda.memory_allocated()
     fk.fused_fit_moments.launches = 0
     t0 = time.perf_counter()
@@ -2207,7 +2221,7 @@ def _batch_library(lofar) -> dict:
     def measured(Db, w0b, *args, **kwargs):
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
         b0 = torch.cuda.memory_allocated()
         out = real(Db, w0b, *args, **kwargs)
         peaks.append((len(Db), torch.cuda.max_memory_allocated() - b0))
@@ -2407,7 +2421,7 @@ def _sweep_library(lofar) -> dict:
     sweep.sweep_thresholds(D, w0, cfg, pairs[:1])   # settles the allocator; not counted
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
     base = torch.cuda.memory_allocated()
     fk.fused_fit_moments.launches = 0
     t_before = tp.build_template.launches
@@ -2440,7 +2454,7 @@ def _sweep_library(lofar) -> dict:
 
     solo_walls = []
     for p in points:
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
         t0 = time.perf_counter()
         solo = clean_cube(D, w0, cfg.replace(chanthresh=p.chanthresh,
                                              subintthresh=p.subintthresh), device="cuda")
@@ -2469,7 +2483,7 @@ def _sweep_library(lofar) -> dict:
 
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
         base = torch.cuda.memory_allocated()
         fk.fused_fit_moments.launches = 0
         t_before = tp.build_template.launches
@@ -3281,10 +3295,10 @@ def phase_fleet(lofar, card) -> tuple[dict, dict]:
     smokes = _start_smokes(work)
 
     gc.collect()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
     mem0 = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    limit = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
+    limit = torch.cuda.get_device_properties(0).total_memory  # ict: backend-init-ok(phase 1 made CUDA live)
     snap = tracing.snapshot()
     counters0 = tracing.counters_snapshot()
     # The router hashes a submitted file for its result cache only below
@@ -3345,7 +3359,7 @@ def phase_fleet(lofar, card) -> tuple[dict, dict]:
                 time.sleep(0.05)
             check(_http(urls[0], "/healthz")["backend"] == "torch", "replica a is not on torch")
             router.poll_tick()
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
             peak_both = torch.cuda.max_memory_allocated()
             t_kill = time.perf_counter()
             svc_a.stop()
@@ -3367,7 +3381,7 @@ def phase_fleet(lofar, card) -> tuple[dict, dict]:
                 check(np.array_equal(_ictb_weights(st["out_path"], nsub, nchan), w)
                       and (st["loops"], st["converged"]) == (loops, done),
                       f"fleet job {p}: mask, loops or converged differ from the batch phase's")
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
             peak_after = torch.cuda.max_memory_allocated()
             health_b = _http(urls[1], "/healthz")
             check(health_b["backend"] == "torch", f"replica b /healthz backend {health_b['backend']!r}")
@@ -3454,7 +3468,7 @@ def phase_fleet(lofar, card) -> tuple[dict, dict]:
 
     del svcs, svc_a, svc_b, router
     gc.collect()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
     mem1 = torch.cuda.memory_allocated()
     check(mem1 - mem0 <= FLEET_MEMORY_SLACK,
           f"device memory after the fleet stopped: {mem1} B, {mem0} B before the phase")
@@ -3652,13 +3666,13 @@ def _surface_x64_lofar(lofar) -> dict:
                         ("lofar_x64_chunked", {"chunk_block": 32})):
         cfg = CleanConfig(backend="torch", x64=True, **extra)
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
         base = torch.cuda.memory_allocated()
         _reset_counts()
         t0 = time.perf_counter()
         with _stderr_to(io.StringIO()), _recording(chunked, "ChunkedTorchCleaner") as made:
             res = clean_cube(D, w0, cfg, device="cuda")
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
         wall = time.perf_counter() - t0
         n_fit, n_t, n_64 = _counts()
         peak = torch.cuda.max_memory_allocated() - base
@@ -3730,6 +3744,86 @@ def phase_cli_surface(lofar) -> tuple[dict, dict]:
         psrchive_io._psr = saved[1]
     f64.update(_surface_x64_lofar(lofar))
     return launches, f64
+
+
+#: The contracts phase's limit (s), and the chunked route's block there at
+#: LOFAR (8 blocks, as phase 7).
+CONTRACTS_PHASE_S = 30
+CONTRACTS_BLOCK = 32
+
+
+def _contract_lines(label: str, runs) -> list:
+    """Each run's line: its syncs on the card against the ledger's
+    prediction (reads and uploads for the iterations it ran)."""
+    from iterative_cleaner_tpu_torch.analysis import contracts
+
+    findings = []
+    for run in runs:
+        t, want = run.trace, run.expected
+        n = run.units.get("iteration", run.units.get("continuing iteration", 1))
+        log(f"  {label} {run.route}/{run.name}: {len(t.syncs)} syncs in {n} iteration(s) "
+            f"(ledger: {want['read']} reads + {want['upload']} uploads; seen {len(t.reads)} + "
+            f"{len(t.uploads)}){'; syncs at ' + ', '.join(sorted(set(t.syncs))) if t.syncs else ''}")
+        check(len(t.syncs) == want["read"] + want["upload"],
+              f"{label} {run.route}/{run.name}: {len(t.syncs)} syncs {t.syncs}, the ledger "
+              f"predicts {want}")
+        findings.extend(contracts.check_run(run))
+    return findings
+
+
+def phase_contracts(lofar) -> tuple[int, int]:
+    """The port's static analysis suite on the card: ``tools_torch/ict_lint.py
+    --source --races`` in a process of its own (rc 0), then the route
+    contracts on cuda — every entry point with the kernel route off and on,
+    on the tiny cube and at LOFAR on phase 4's cube (the chunked route in
+    32-subint blocks, the batch of 2 LOFAR cubes): each run's CUDA syncs
+    (``torch.cuda.set_sync_debug_mode``) equal to the ledger's reads plus
+    uploads for the iterations it ran, no finding, and
+    ``sparse_template_candidate`` (``torch.nonzero_static``) at LOFAR without
+    a sync.  Returns each kernel's launches over the phase."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.analysis import contracts
+    from iterative_cleaner_tpu_torch.backends.torch_backend import INCREMENTAL_TEMPLATE_BUDGET
+
+    t0 = time.perf_counter()
+    lint = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools_torch",
+                                      "ict_lint.py"), "--source", "--races"],
+        capture_output=True, text=True, timeout=300)
+    lint_s = time.perf_counter() - t0
+    check(lint.returncode == 0, f"ict_lint --source --races: rc {lint.returncode}\n"
+          f"{lint.stdout[-3000:]}\n{lint.stderr[-3000:]}")
+    log(f"contracts: ict_lint --source --races rc 0 in {lint_s:.2f}s "
+        f"({lint.stderr.strip().splitlines()[-1] if lint.stderr.strip() else ''})")
+    _reset_counts()
+    findings = []
+    t1 = time.perf_counter()
+    runs, failed = contracts.run_routes("cuda")
+    findings += failed + _contract_lines(f"tiny {contracts.TINY_SHAPE}", runs)
+    tiny_s = time.perf_counter() - t1
+    D, w0 = lofar["D"], lofar["w0"]
+    t1 = time.perf_counter()
+    runs, failed = contracts.run_routes("cuda", cube=(D, w0), batch=[(D, w0), (D, w0)],
+                                        block=CONTRACTS_BLOCK)
+    findings += failed + _contract_lines(f"LOFAR {LOFAR}", runs)
+    lofar_s = time.perf_counter() - t1
+    check(not findings, "route contracts on cuda:\n" + "\n".join(f.render() for f in findings))
+    sparse = [r for r in runs if r.label == "sparse_template_candidate"]
+    check(len(sparse) == 2 and all(r.trace.syncs == [] for r in sparse),
+          f"sparse_template_candidate at LOFAR synchronised: {[r.trace.syncs for r in sparse]}")
+    log(f"  sparse_template_candidate at LOFAR width (torch.nonzero_static, budget "
+        f"{INCREMENTAL_TEMPLATE_BUDGET}): 0 syncs, kernel route off and on")
+    fit, template, _ = _counts()
+    phase_s = time.perf_counter() - t0
+    log(f"contracts: every route on cuda holds its ledger; tiny {tiny_s:.2f}s, LOFAR "
+        f"{lofar_s:.2f}s, lint {lint_s:.2f}s, the phase {phase_s:.2f}s; launches "
+        f"fused_fit_moments {fit}, ordered_template {template}")
+    check(fit > 0 and template > 0, f"contracts: launches {fit}, {template}")
+    check(phase_s <= CONTRACTS_PHASE_S,
+          f"the contracts phase took {phase_s:.1f}s, over {CONTRACTS_PHASE_S}s")
+    torch.cuda.empty_cache()
+    return fit, template
 
 
 #: Seeds of the fuzz phase from 1000, float32 and --x64: each mode of
@@ -3969,7 +4063,7 @@ def phase_north_star(entry, tentry) -> dict:
     for name, mem in (("auto", None), ("auto_32gb", budget)):
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
         fk.fused_fit_moments.launches = 0
         with _hbm_budget(mem) if mem is not None else contextlib.nullcontext():
             block = autoshard.chunk_block_subints(shape, cfg, "cuda")
@@ -4070,6 +4164,8 @@ def main() -> int:
         surface, f64_by_path = timed("CLI surface", phase_cli_surface, lofar)
         for name, (n_fit, n_t) in surface.items():
             by_path[name], template_by_path[name] = n_fit, n_t
+        by_path["contracts"], template_by_path["contracts"] = timed(
+            "contracts", phase_contracts, lofar)
         fuzz = timed("fuzz", phase_fuzz)
         by_path["fuzz"] = fuzz["f32"]["fused_fit_moments"]
         template_by_path["fuzz"] = fuzz["f32"]["ordered_template"]
@@ -4085,8 +4181,8 @@ def main() -> int:
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f}s")
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),  # ict: backend-init-ok(phase 1 made CUDA live)
+        "count": torch.cuda.device_count()}}), flush=True)  # ict: backend-init-ok(phase 1 made CUDA live)
     return 0
 
 

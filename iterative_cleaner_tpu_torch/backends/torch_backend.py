@@ -49,7 +49,7 @@ INCREMENTAL_TEMPLATE_BUDGET = 512
 def compute_dtype(cfg: CleanConfig) -> torch.dtype:
     """The type a clean computes in: float64 under ``cfg.x64``, else
     float32."""
-    return torch.float64 if cfg.x64 else torch.float32
+    return torch.float64 if cfg.x64 else torch.float32  # ict: f64-ok(explicit --x64 opt-in)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -167,7 +167,7 @@ def incremental_template(D, T_prev, w_prev, new_w):
 
 
 #: The numpy type of each compute type.
-_NUMPY_TYPES = {torch.float32: np.float32, torch.float64: np.float64}
+_NUMPY_TYPES = {torch.float32: np.float32, torch.float64: np.float64}  # ict: f64-ok(explicit --x64 opt-in)
 
 
 def to_device(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -355,7 +355,7 @@ def precompile_for(shape, cfg: CleanConfig, want_residual: bool = False,
     else:
         clean_step(D, w, v, w, 5.0, 5.0, pulse_region=pr, use_kernel=use_kernel)
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)  # ict: backend-init-ok(after the warm-up's device work: CUDA is live)
 
 
 def start_precompile(shape, cfg: CleanConfig, want_residual: bool = False,

@@ -54,7 +54,7 @@ except ImportError:  # pragma: no cover - exercised where zstd exists
     _zstd = None
 
 _stats_lock = threading.Lock()
-_STATS = {
+_STATS = {  # ict: guarded-by(_stats_lock)
     "encoded": 0, "raw_bytes_in": 0, "wire_bytes_out": 0,
     "decoded": 0, "wire_bytes_in": 0, "raw_bytes_out": 0,
 }

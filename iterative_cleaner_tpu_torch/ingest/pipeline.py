@@ -55,7 +55,7 @@ from iterative_cleaner_tpu_torch.obs import tracing
 DEFAULT_DEPTH = 2
 
 _stats_lock = threading.Lock()
-_STATS = {
+_STATS = {  # ict: guarded-by(_stats_lock)
     "blocks": 0,           # blocks staged through any stager
     "serial_blocks": 0,    # of which on the serial (depth=1) path
     "bytes": 0,            # device bytes staged
@@ -338,12 +338,12 @@ class SlabUploader:
 
     def take(self, staged: StagedSlab) -> torch.Tensor:
         if self._cuda:
-            torch.cuda.current_stream(self.device).wait_event(staged.slot.ready)
+            torch.cuda.current_stream(self.device).wait_event(staged.slot.ready)  # ict: backend-init-ok(the slab is on the card: CUDA is live)
         return staged.tensor
 
     def finish(self, staged: StagedSlab) -> None:
         if self._cuda:
-            staged.slot.done.record(torch.cuda.current_stream(self.device))
+            staged.slot.done.record(torch.cuda.current_stream(self.device))  # ict: backend-init-ok(the slab is on the card: CUDA is live)
 
     def wait(self, staged: StagedSlab) -> None:
         if self._cuda:

@@ -87,12 +87,13 @@ def library_path() -> Path:
                                     CXXFLAGS, BUILD_DIR)
 
 
-def _build() -> Path | None:
+def _build(log: list[str] | None = None) -> Path | None:
     """Compile the source unless this exact build exists; the library path,
-    or None (the reason in :func:`build_log`)."""
-    global _build_log
+    or None.  ``log``, when given, receives the build's log (the reason
+    when None), which :func:`get_lib` keeps for :func:`build_log`."""
+    log = [] if log is None else log
     if not SOURCE.is_file():
-        _build_log = f"no native source at {SOURCE}"
+        log.append(f"no native source at {SOURCE}")
         return None
     out = library_path()
     if out.exists():
@@ -101,20 +102,23 @@ def _build() -> Path | None:
     try:
         proc = cuda_build.compile_shared(cmd, out, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as exc:
-        _build_log = f"{' '.join(cmd)}\n{exc}"
+        log.append(f"{' '.join(cmd)}\n{exc}")
         return None
-    _build_log = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    log.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     return out if proc.returncode == 0 else None
 
 
 def get_lib():
     """The loaded library, building it first if needed; None if unavailable."""
-    global _lib, _tried
+    global _lib, _tried, _build_log
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        path = _build()
+        log: list[str] = []
+        path = _build(log)
+        if log:
+            _build_log = log[-1]
         if path is None:
             return None
         lib = ctypes.CDLL(str(path))

@@ -68,7 +68,7 @@ def device_stats(device) -> dict | None:
     if device.type != "cuda" or not backend_live():
         return None
     stats = torch.cuda.memory_stats(device)
-    free, total = torch.cuda.mem_get_info(device)
+    free, total = torch.cuda.mem_get_info(device)  # ict: backend-init-ok(gated on backend_live() above)
     return {
         "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
         "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
@@ -92,7 +92,7 @@ def device_memory_bytes(device=None) -> int | None:
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         return None
-    return int(torch.cuda.mem_get_info(dev)[1])
+    return int(torch.cuda.mem_get_info(dev)[1])  # ict: backend-init-ok(routing's first CUDA read: the CLI's init_watchdog and the daemon's probe come first)
 
 
 def host_rss_bytes() -> int:
@@ -122,7 +122,7 @@ def device_snapshot() -> list[dict]:
     import torch
 
     out = []
-    for i in range(torch.cuda.device_count()):
+    for i in range(torch.cuda.device_count()):  # ict: backend-init-ok(gated on backend_live() above)
         stats = device_stats(torch.device("cuda", i))
         if stats is not None:
             out.append({"device": f"cuda:{i}", **stats})

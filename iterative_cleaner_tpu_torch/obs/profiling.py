@@ -51,7 +51,7 @@ STOP_WAIT_S = 120.0
 TRACE_SUFFIX = ".pt.trace.json"
 
 _lock = threading.Lock()          # held only to mutate _active
-_active: dict | None = None       # {"dir", "started_s", "until_s", "capture"}  # guarded by _lock
+_active: dict | None = None       # {"dir", "started_s", "until_s", "capture"}  # ict: guarded-by(_lock)
 
 
 def max_capture_s() -> float:
@@ -94,16 +94,16 @@ def _export(prof, out_dir: str) -> str:
     return path
 
 
-def _claim(out_dir: str, until_s: float | None, capture) -> None:
-    """Make this capture the process's one active capture (caller holds
-    ``_lock``); RuntimeError when another is running."""
-    global _active
+def _claim(out_dir: str, until_s: float | None, capture) -> dict:
+    """The record that makes this capture the process's one active capture,
+    which the caller stores in ``_active`` under ``_lock`` (held for this
+    call too); RuntimeError when another is running."""
     if _active is not None:
         raise RuntimeError(
             f"a profiler capture is already running ({_active['dir']}); "
             "stop it or wait for its deadline")
-    _active = {"dir": out_dir, "started_s": time.time(), "until_s": until_s,
-               "capture": capture}
+    return {"dir": out_dir, "started_s": time.time(), "until_s": until_s,
+            "capture": capture}
 
 
 def _release(capture) -> bool:
@@ -142,10 +142,10 @@ class _Capture(threading.Thread):
         try:
             prof = _profiler(self.device, all_threads=True)
             if sync:
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(self.device)  # ict: backend-init-ok(gated on torch.cuda.is_initialized() above)
             prof.start()
             if sync:
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(self.device)  # ict: backend-init-ok(gated on torch.cuda.is_initialized() above)
         except BaseException as exc:  # noqa: BLE001 — handed to start()
             self.error = exc
             self.started.set()
@@ -176,7 +176,7 @@ def start(root: str, duration_s: float = 5.0, tag: str = "capture",
     out_dir = os.path.join(root, f"{int(time.time() * 1000):013d}-{tag}")
     with _lock:
         cap = _Capture(out_dir, duration_s, device)
-        _claim(out_dir, time.time() + duration_s, cap)
+        _active = _claim(out_dir, time.time() + duration_s, cap)
         try:
             os.makedirs(out_dir, exist_ok=True)
             cap.start()
@@ -278,9 +278,10 @@ def profile_trace(trace_dir: str | None, device="cuda"):
     if not trace_dir:
         yield
         return
+    global _active
     prof = _profiler(device, all_threads=False)
     with _lock:
-        _claim(trace_dir, None, prof)
+        _active = _claim(trace_dir, None, prof)
     try:
         os.makedirs(trace_dir, exist_ok=True)
         prof.start()

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes.CDLL] = {}  # ict: guarded-by(_lock)
 
 
 def find_nvcc() -> str:

@@ -166,7 +166,7 @@ def _plan(nprof, nbin, narch, aligned, sms, stages, rows, blocks_per_sm, blocks,
 
 @functools.lru_cache(maxsize=8)
 def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.cuda.get_device_properties(device).multi_processor_count  # ict: backend-init-ok(the operands are on the card: CUDA is live)
 
 
 def plan_for(D: torch.Tensor, **overrides) -> FitLaunch:
@@ -348,7 +348,7 @@ def launch(plan: FitLaunch, D, template, w0, valid=None, *, pulse_region=(0.0, 0
     # The bin scale is made once per shape and region; <t,t> is the kernel's.
     bin_scale = bin_scale_for(plan.nbin, pulse_region, D.device, D.dtype)
     lib = lib or _library()
-    with torch.cuda.device(D.device):
+    with torch.cuda.device(D.device):  # ict: backend-init-ok(the operands are on the card: CUDA is live)
         # The current stream's cudaStream_t, without a torch.cuda.Stream
         # object for it (the host's time a call is the slab's bottleneck).
         stream = torch._C._cuda_getCurrentRawStream(D.device.index)

@@ -23,7 +23,7 @@ import torch
 
 #: The integer type of a float type's keys, and the mask of its magnitude bits.
 _KEY_TYPES = {torch.float32: (torch.int32, 0x7FFFFFFF),
-              torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF)}
+              torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF)}  # ict: f64-ok(explicit --x64 opt-in; integer sort keys only, no f64 math)
 
 
 def _totalorder_keys(x: torch.Tensor) -> torch.Tensor:

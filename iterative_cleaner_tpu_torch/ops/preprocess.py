@@ -54,7 +54,7 @@ def dispersion_shifts(
     if dm == 0.0 or period <= 0:
         return np.zeros(len(freqs), dtype=np.int64)
     delay = DM_CONST * dm * (
-        np.asarray(freqs, np.float64) ** -2 - float(ref_freq) ** -2)
+        np.asarray(freqs, np.float64) ** -2 - float(ref_freq) ** -2)  # ict: f64-ok(oracle-parity f64 accumulation on the host)
     return np.round(delay / period * nbin).astype(np.int64) % nbin
 
 
@@ -85,13 +85,13 @@ def remove_baseline(cube: np.ndarray, weights: np.ndarray, frac: float = BASELIN
     """
     nbin = cube.shape[-1]
     total = np.einsum(
-        "sc,scb->b", weights.astype(np.float64), cube.astype(np.float64))
+        "sc,scb->b", weights.astype(np.float64), cube.astype(np.float64))  # ict: f64-ok(oracle-parity f64 accumulation on the host)
     start, width = baseline_window(total, frac)
     idx = (start + np.arange(width)) % nbin
-    base = cube[..., idx].mean(axis=-1, keepdims=True, dtype=np.float64)
+    base = cube[..., idx].mean(axis=-1, keepdims=True, dtype=np.float64)  # ict: f64-ok(oracle-parity f64 accumulation on the host)
     out = np.empty_like(cube, dtype=np.float32)
     for s in range(cube.shape[0]):
-        out[s] = (cube[s].astype(np.float64) - base[s]).astype(np.float32)
+        out[s] = (cube[s].astype(np.float64) - base[s]).astype(np.float32)  # ict: f64-ok(oracle-parity f64 accumulation on the host)
     return out
 
 

@@ -57,7 +57,7 @@ def _smem_bytes(rows: int, itemsize: int) -> int:
 TEMPLATE_SMEM_BYTES = _smem_bytes(TEMPLATE_ROWS_PER_STAGE, 4)
 #: Rows per stage by element type; both builds take TEMPLATE_SMEM_BYTES.
 ROWS_PER_STAGE = {torch.float32: TEMPLATE_ROWS_PER_STAGE,
-                  torch.float64: TEMPLATE_ROWS_PER_STAGE_F64}
+                  torch.float64: TEMPLATE_ROWS_PER_STAGE_F64}  # ict: f64-ok(explicit --x64 opt-in)
 assert _smem_bytes(TEMPLATE_ROWS_PER_STAGE_F64, 8) == TEMPLATE_SMEM_BYTES
 
 #: The kernel's load paths (its ``path`` argument): 16-byte copies where
@@ -164,7 +164,7 @@ def plan_for(D: torch.Tensor, weights: torch.Tensor, init: torch.Tensor | None =
 #: The library's entry points by element type: the launch and the chain probe.
 ENTRIES = {torch.float32: ("ordered_template_launch", "ordered_template_chain_probe",
                            ctypes.c_float),
-           torch.float64: ("ordered_template_launch_f64", "ordered_template_chain_probe_f64",
+           torch.float64: ("ordered_template_launch_f64", "ordered_template_chain_probe_f64",  # ict: f64-ok(explicit --x64 opt-in)
                            ctypes.c_double)}
 
 
@@ -231,8 +231,8 @@ def build_template(D: torch.Tensor, weights: torch.Tensor,
     if plan.blocks == 0:   # no bins, no archives, or no profiles: init or zeros
         return out.copy_(init.reshape(out.shape)) if init is not None else out.zero_()
     lib = _library()
-    with torch.cuda.device(D.device):
-        stream = torch.cuda.current_stream(D.device).cuda_stream
+    with torch.cuda.device(D.device):  # ict: backend-init-ok(the operands are on the card: CUDA is live)
+        stream = torch.cuda.current_stream(D.device).cuda_stream  # ict: backend-init-ok(the operands are on the card: CUDA is live)
         with torch.profiler.record_function("ordered_template"):
             err = getattr(lib, ENTRIES[D.dtype][0])(
                 D.data_ptr(), w.data_ptr(), None if init is None else init.data_ptr(),
@@ -240,7 +240,7 @@ def build_template(D: torch.Tensor, weights: torch.Tensor,
                 plan.w_arch_stride, PATHS.index(plan.path), stream)
     _raise_for(lib, err, "ordered_template launch")
     with _LAUNCHES_LOCK:   # launches may come from several host threads
-        if D.dtype == torch.float64:
+        if D.dtype == torch.float64:  # ict: f64-ok(explicit --x64 opt-in)
             build_template.launches_f64 += 1
         else:
             build_template.launches += 1
@@ -272,8 +272,8 @@ def chain_probe(n_adds: int, device="cuda", dtype=torch.float32) -> tuple[float,
     lib = _library()
     out = torch.empty(32, dtype=dtype, device=device)
     cycles = torch.zeros(1, dtype=torch.int64, device=device)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device)
+    with torch.cuda.device(out.device):  # ict: backend-init-ok(its output is on the card: CUDA is live)
+        stream = torch.cuda.current_stream(out.device)  # ict: backend-init-ok(its output is on the card: CUDA is live)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record(stream)
         err = getattr(lib, ENTRIES[dtype][1])(out.data_ptr(), cycles.data_ptr(), n_adds,

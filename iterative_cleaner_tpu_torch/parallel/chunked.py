@@ -85,7 +85,7 @@ class ChunkedTorchCleaner:
             raise ValueError(f"block must be >= 1, got {block}")
         self._dtype = compute_dtype(cfg)
         # Host-resident by design: the whole cube never goes to the device.
-        self._D = np.ascontiguousarray(D, dtype=np.float64 if cfg.x64 else np.float32)
+        self._D = np.ascontiguousarray(D, dtype=np.float64 if cfg.x64 else np.float32)  # ict: f64-ok(explicit --x64 opt-in)
         self._w0 = to_device(w0, self.device, self._dtype)
         self._valid = self._w0 != 0
         self._use_kernel = kernel_for(cfg, self._D.shape[-1], self.device)

@@ -181,7 +181,7 @@ def time_ms(fn, runs: int) -> float:
     behind a spin of the card long enough for the host to enqueue them all,
     between two CUDA events (the host's time to launch is not in it)."""
     fn()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(times device work: CUDA is live)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(2_000_000 * runs)
     a.record()
@@ -249,7 +249,7 @@ def main() -> int:
                 if plan(D, name) is None:
                     continue
                 got = run(libs, name, D, t, w, v)
-                torch.cuda.synchronize()
+                torch.cuda.synchronize()  # ict: backend-init-ok(times device work: CUDA is live)
                 for key, g, x in zip(TOL, got, want):
                     torch.testing.assert_close(
                         g, x, rtol=TOL[key][0], atol=TOL[key][1], equal_nan=True,

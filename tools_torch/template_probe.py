@@ -97,7 +97,7 @@ def run(lib, D, w, path: int, narch: int):
     err = getattr(lib, entry)(
         D.data_ptr(), wv.data_ptr(), None, out.data_ptr(), nprof, nbin, narch,
         D.stride(0) if D.dim() == 4 else nprof * nbin, wv.stride(0), path,
-        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.current_stream().cuda_stream)  # ict: backend-init-ok(the operands are on the card: CUDA is live)
     if err:
         raise RuntimeError(f"launch failed: {lib.ordered_template_error_string(err).decode()}")
     return out
@@ -105,7 +105,7 @@ def run(lib, D, w, path: int, narch: int):
 
 def time_ms(fn, runs=10) -> float:
     fn()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(times device work: CUDA is live)
     ts = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -162,7 +162,7 @@ def main() -> int:
                 continue
             for path in (0, 1) if shape[-1] % 4 == 0 else (1,):
                 got = run(lib, D, w, path, 1)[0]
-                torch.cuda.synchronize()
+                torch.cuda.synchronize()  # ict: backend-init-ok(times device work: CUDA is live)
                 if not same(got, want):
                     raise AssertionError(f"variant {v} path {path} at {shape}: kernel != plain")
     print(f"small shapes {SMALL}: every variant and path == plain bit for bit", flush=True)
@@ -193,7 +193,7 @@ def main() -> int:
     check = tp.build_template(D, w)   # the package's own launch equals the shipped build
     if not same(check, ref["lofar"][0]):
         raise AssertionError("ops/template.build_template != the shipped build at LOFAR")
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # ict: backend-init-ok(times device work: CUDA is live)
     for case, (Dc, wc, narch) in cases.items():
         nprof = nsub * nchan
         bytes_moved = 4 * (narch if case != "sweep9" else 1) * nprof * nbin
