@@ -14,7 +14,8 @@ exits non-zero:
 3. kernel vs plain — each kernel's wrapper against its plain PyTorch version
    on the card.  ``fused_fit_moments`` at the main path's shape
    (256 x 1024 x 1024, BASELINE.json config #2), at the chunked route's
-   block (32 x 1024 x 1024) and at ragged small shapes, with fills, a pulse
+   block (32 x 1024 x 1024), at a rank's block (128 x 1024 x 1024) and at
+   ragged small shapes, with fills, a pulse
    region, a zero template and pre-zapped profiles, on the load path its
    launch plan takes (4-byte copies for an odd pitch and for a base one
    float into its buffer), up to the widest profile a block takes; the
@@ -30,7 +31,9 @@ exits non-zero:
    pitch or the base is not 16-byte aligned) at ragged shapes (zero weights,
    an inf and a NaN sample, fewer profiles than one stage, a partial bin
    group), a sum continued block by block (from an unaligned base too), a
-   batch, and the sweep's stride-0 pair axis in one launch; the chain probe
+   batch, the sweep's stride-0 pair axis in one launch, and the ranks' chain
+   (LOFAR in two 128-subint blocks with a leading archive axis, the second
+   continuing the first) against the one-card build; the chain probe
    (the card's time per dependent float32 add).  Each is timed against its
    plain version, the least time the card could take (bytes or operations
    over its published peak; for the template also the chain of dependent
@@ -55,7 +58,8 @@ exits non-zero:
    order or as one matrix-vector product, TF32's flags); times each device
    layer of one iteration, beside the times with a thread per template
    chain;
-5. obs — on phase 4's archive, ``cli.main`` with ``--telemetry``,
+5. obs — on phase 4's archive written as ``.ictb`` (the NPZ writer's zlib
+   is phase 4's to time), ``cli.main`` with ``--telemetry``,
    ``--trace``, ``--audit`` and ``--report`` under ``ICT_FORENSICS=1``: the
    event log (the run's spans, ``job_submitted``, ``clean_route``, one
    ``iteration`` per loop with its per-diagnostic zap attribution), the
@@ -178,19 +182,41 @@ exits non-zero:
    ``tools_torch/ict_lint.py --source --races`` in a process of its own
    (rc 0 on this host's Python), then the route contracts
    (``analysis/contracts.py``) on cuda, every entry point of the stepwise,
-   fused, chunked and batch routes with the kernel route off and on, on the
+   fused, chunked and batch routes, and the ranks route on a one-rank
+   ``gloo`` group (its collectives staged through the host), with the
+   kernel route off and on, on the
    tiny cube and at 256 x 1024 x 1024 on phase 4's cube (the chunked route in
    32-subint blocks, a batch of 2 LOFAR cubes): each run's CUDA syncs
    (``torch.cuda.set_sync_debug_mode``) equal to the ledger's reads plus
    uploads for the iterations it ran, no 64-bit float, and
    ``sparse_template_candidate`` (``torch.nonzero_static``) at LOFAR width
    without a sync; both kernels launched; the phase within 30 s;
-18. fuzz — ``tools_torch/fuzz_sweep.py`` on cuda, 16 float32 seeds and 8
+18. ranks — the multi-process tier, ranks in child processes sharing
+   cuda:0 (``parallel/mesh.initialize_distributed``, each with a timeout),
+   each memory-mapping the cubes the batch phase wrote as ``.npy`` and
+   uploading only its slice: (a) two ``gloo`` ranks,
+   ``sharded_clean_single`` of phase 4's cube over ``sp=2`` — the oracle's
+   mask, loops and converged, score drift within 5e-5, the largest score
+   difference against the one-card batched route, rank 0's syncs against
+   the route contract (``ROUTE_HOST_READS['ranks']``); (b) four ``gloo``
+   ranks, ``dp=2 x sp=2``, ``sharded_clean`` of the batch phase's seeds 42
+   and 101 — its masks; (c) one ``nccl`` rank, (a) at ``sp=1`` through
+   the device-tensor path, also held to the contract; two ``nccl`` ranks on
+   one card refused (NCCL's error printed); (d) two ``gloo`` ranks each
+   running ``cli.main`` over the service phase's three LOFAR ``.ictb``
+   archives — slices ``[p0, p2]`` and ``[p1]``, ``r.json.p0`` and
+   ``r.json.p1`` and no ``r.json``, the batch phase's masks.  Every rank's
+   result identical, both kernels launched on every rank (by path:
+   ``sharded_sp2``, ``dp2_sp2``, ``nccl_sp1``, ``cli_ranks``), the staged
+   copies as the collectives' order predicts; per run the backend, ranks,
+   wall, the template chain's time and the bytes gathered and staged per
+   iteration;
+19. fuzz — ``tools_torch/fuzz_sweep.py`` on cuda, 16 float32 seeds and 8
    ``--x64`` seeds from 1000 in two processes side by side: rc 0, every
    mode identical to the oracle, the per-mode drift and sparse-update
    counts printed; ``tools_torch/replay_repro.py`` on cuda on a bundle with
    one flipped served cell: cleared, rc 0;
-19. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+20. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the template over the
    whole cube in one launch, timed beside cuBLAS's matrix-vector product,
@@ -202,7 +228,7 @@ exits non-zero:
    which routes it chunked), each with its peak device memory held against
    the estimate or the budget, wall-clock and per-iteration times; masks
    identical;
-20. one JSON line of the kernels (launches per path; the template kernel's
+21. one JSON line of the kernels (launches per path; the template kernel's
    per phase, each phase's count above 0; its float64 instantiation its own
    entry), then ``{"ok": true, "device": ...}`` last.
 
@@ -457,6 +483,8 @@ def phase_kernel_parity():
         ("lofar, valid", LOFAR, True, (0.0, 0.0, 1.0), "aligned", {}),
         ("lofar, raw maps", LOFAR, False, (0.0, 0.0, 1.0), "aligned", {}),
         ("32x1024x1024 (a chunked block), valid", (32, 1024, 1024), True,
+         (0.0, 0.0, 1.0), "aligned", {}),
+        ("128x1024x1024 (a rank's block, sp=2 at LOFAR), valid", (128, 1024, 1024), True,
          (0.0, 0.0, 1.0), "aligned", {}),
         ("5x33x100, raw maps", (5, 33, 100), False, (0.0, 0.0, 1.0), "aligned", {}),
         ("5x33x100, valid", (5, 33, 100), True, (0.0, 0.0, 1.0), "aligned", {}),
@@ -841,6 +869,21 @@ def phase_template_parity():
         "each archive == the kernel on it alone == plain, bit for bit; with the weights "
         "broadcast too (stride 0) the same")
     del D, wb, Db, tb, w0, t0
+    torch.cuda.empty_cache()
+
+    # The ranks' chain (parallel/collectives.continue_template): LOFAR's
+    # subints in two blocks with a leading archive axis, the second
+    # continuing the first's (1, nbin) sum: the one-card build bit for bit.
+    D = torch.randn(LOFAR, generator=gen, device="cuda")
+    w = torch.rand(LOFAR[:2], generator=gen, device="cuda")
+    half = LOFAR[0] // 2
+    first = tp.build_template(D[None, :half], w[None, :half])
+    cont = tp.build_template(D[None, half:], w[None, half:], init=first)
+    check(_same_floats(cont[0], tp.build_template(D, w)),
+          "the ranks' continued template differs from the one-card build")
+    log(f"  ordered_template as the ranks continue it: {LOFAR} in two blocks of {half} "
+        "subints, (1, nbin) carried from the first: the one-card build bit for bit")
+    del D, w, first, cont
     torch.cuda.empty_cache()
 
     t_add_ms, cycles, clock = _chain_probe()
@@ -1414,6 +1457,7 @@ def phase_obs(lofar, entries) -> dict:
     from iterative_cleaner_tpu_torch.backends.torch_backend import run_fused
     from iterative_cleaner_tpu_torch.config import CleanConfig
     from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.io.ictb import IctbIO
     from iterative_cleaner_tpu_torch.io.npz import NpzIO
     from iterative_cleaner_tpu_torch.io.synthetic import make_archive
     from iterative_cleaner_tpu_torch.obs import events, flight, memory, metrics, profiling, tracing
@@ -1465,6 +1509,13 @@ def phase_obs(lofar, entries) -> dict:
     tracing.reset_counters()
     flight.reset()
     cwd = os.getcwd()
+    # The obs CLI reads and writes the archive as .ictb: the NPZ zlib writer
+    # took 60 s of this phase's 172 s, and phase 4 runs the NPZ path at
+    # this size already.  The depth stays the main path's.
+    obs_in = os.path.join(work, "lofar_seed42.ictb")
+    t0 = time.perf_counter()
+    IctbIO().save(lofar["archive"], obs_in)
+    log(f"obs: phase 4's archive written as {obs_in} in {time.perf_counter() - t0:.2f}s")
     os.environ["ICT_FORENSICS"] = "1"
     os.environ["ICT_REPRO_DIR"] = os.path.join(work, "repro")
     fk.fused_fit_moments.launches = tp.build_template.launches = 0
@@ -1472,7 +1523,7 @@ def phase_obs(lofar, entries) -> dict:
     try:
         t0 = time.perf_counter()
         with _stderr_to(io.StringIO()) as said:
-            rc = cli.main([lofar["path"], "-q", "-o", os.path.join(work, "obs_cleaned.npz"),
+            rc = cli.main([obs_in, "-q", "-o", os.path.join(work, "obs_cleaned.ictb"),
                            "--telemetry", ev_path, "--trace", tdir, "--audit",
                            "--report", rep_path])
         obs_wall = time.perf_counter() - t0
@@ -1613,8 +1664,9 @@ def phase_obs(lofar, entries) -> dict:
     log(f"  CLI wall on {shape}: without telemetry "
         + ", ".join(f"{w:.2f}" for w in walls["off"]) + " s; with --telemetry and "
         "ICT_FORENSICS=1 " + ", ".join(f"{w:.2f}" for w in walls["on"]) + " s")
-    log(f"  CLI wall on {LOFAR}: the main path (defaults) {lofar['wall']:.2f}s; with "
-        f"--telemetry, ICT_FORENSICS=1, --audit and --trace {obs_wall:.2f}s")
+    log(f"  CLI wall on {LOFAR}: the main path (defaults, NPZ) {lofar['wall']:.2f}s; with "
+        f"--telemetry, ICT_FORENSICS=1, --audit and --trace, .ictb in and out, "
+        f"{obs_wall:.2f}s")
     del out
     torch.cuda.empty_cache()
     return launches, {"trace": trace_stats, "fused": fused_stats}
@@ -2182,6 +2234,18 @@ def _batch_library(lofar) -> dict:
     # archives it submits again as jobs.
     lofar["service_refs"] = [(w_b[j].copy(), int(loops_b[j]), bool(done_b[j]))
                              for j in range(SERVICE_JOBS)]
+    # The ranks phase's: archives 0 and 1 (seeds 42 and 101) as .npy files
+    # its ranks memory-map, with their scores, masks, loops and converged.
+    rdir = os.path.join(os.path.dirname(lofar["path"]), "ranks")
+    os.makedirs(rdir, exist_ok=True)
+    lofar["ranks_inputs"], lofar["ranks_refs"] = {}, {}
+    for j in (0, 1):
+        lofar["ranks_inputs"][j] = (os.path.join(rdir, f"D{j}.npy"),
+                                    os.path.join(rdir, f"w{j}.npy"))
+        np.save(lofar["ranks_inputs"][j][0], cubes[j])
+        np.save(lofar["ranks_inputs"][j][1], w0s[j])
+        lofar["ranks_refs"][j] = (test_b[j].copy(), w_b[j].copy(), int(loops_b[j]),
+                                  bool(done_b[j]))
     check(launches == max(xs), f"batch launches {launches} != the batch's iterations {max(xs)} "
           f"(not {n} archives x iterations)")
     check(peak <= est, f"batch peak {peak} B exceeds the batched estimate {est} B")
@@ -3826,6 +3890,341 @@ def phase_contracts(lofar) -> tuple[int, int]:
     return fit, template
 
 
+#: The ranks phase's sharded cleans: (path label, backend, ranks, dp, sp,
+#: the batch phase's archives it cleans, whether rank 0 is held to the
+#: route contract).  Ranks share cuda:0; NCCL refuses two ranks on one
+#: device, so those run gloo, staging through the host.
+RANK_RUNS = (
+    ("sharded_sp2", "gloo", 2, 1, 2, (0,), True),
+    ("dp2_sp2", "gloo", 4, 2, 2, (0, 1), False),
+    ("nccl_sp1", "nccl", 1, 1, 1, (0,), True),
+)
+#: Seconds a rank process may take; its group's collectives time out
+#: sooner, so a rank that dies fails its peers instead of hanging them.
+RANK_TIMEOUT_S = 180
+RANK_GROUP_TIMEOUT_S = 120
+RANKS_PHASE_S = 120
+
+#: One rank of the ranks phase: joins the group on cuda:0 and, by its
+#: ``mode``, cleans memory-mapped cubes through sharded_clean (held to the
+#: route contract on rank 0 when asked), runs the CLI over paths, or makes
+#: a first NCCL collective that must be refused.  Writes rank<r>.json
+#: (and rank<r>.npz) to its ``out`` directory.
+RANK_CHILD = r'''
+import contextlib, dataclasses, json, os, sys, time
+t_start = time.perf_counter()
+args = json.loads(sys.argv[1])
+rank = int(os.environ["RANK"])
+import numpy as np
+import torch
+import torch.distributed as dist
+from iterative_cleaner_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+t_import = time.perf_counter()
+dev = initialize_distributed(backend=args["backend"], device="cuda:0", timeout_s=args["timeout"])
+out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+       "import_s": t_import - t_start, "init_s": time.perf_counter() - t_import}
+path = os.path.join(args["out"], f"rank{rank}.json")
+if args["mode"] == "nccl_refused":
+    try:
+        x = torch.ones(1, device=dev)
+        dist.all_reduce(x)
+        torch.cuda.synchronize(dev)
+        out["error"] = None
+    except Exception as exc:
+        out["error"] = f"{type(exc).__name__}: {exc}"
+    with open(path, "w") as fh:
+        json.dump(out, fh)
+    sys.stdout.flush()
+    os._exit(0)   # the group may be broken: no teardown that could wait on it
+from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
+from iterative_cleaner_tpu_torch.ops import template as tp
+if args["mode"] == "cli":
+    from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.parallel.multihost import partition_paths
+    t0 = time.perf_counter()
+    out["rc"] = cli.main(["-q", "--report", "r.json", *args["paths"]])
+    out["wall_s"] = time.perf_counter() - t0
+    out["slice"] = partition_paths(args["paths"])
+else:
+    from iterative_cleaner_tpu_torch.analysis import contracts
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.parallel import collectives, sharded
+    cubes = [np.load(p, mmap_mode="r") for p in args["cubes"]]
+    w0s = [np.load(p) for p in args["weights"]]
+    mesh = make_mesh(dp=args["dp"], sp=args["sp"], tp=1)
+    cfg = CleanConfig(backend="torch")
+    out["coords"] = mesh.coords
+    out["ready_s"] = time.perf_counter() - t_start
+    collectives.traffic.reset()
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    test, w, loops, done = sharded.sharded_clean(cubes, w0s, cfg, mesh)
+    out["wall_s"] = time.perf_counter() - t0
+    out["traffic"] = dataclasses.asdict(collectives.traffic)
+    mine = range(mesh.coords[0], len(cubes), mesh.shape["dp"])
+    out["iterations"] = max(int(loops[j]) if done[j] else int(cfg.max_iter) for j in mine)
+    out["archives"] = len(mine)
+    np.savez(os.path.join(args["out"], f"rank{rank}.npz"), test=test, w=w, loops=loops,
+             done=done)
+    out["launches"] = [fk.fused_fit_moments.launches, tp.build_template.launches]
+    if args["trace"]:
+        collectives.traffic.reset()
+        trace = contracts.Trace(dev) if rank == 0 else contextlib.nullcontext()
+        with trace:
+            again = sharded.sharded_clean(cubes, w0s, cfg, mesh)
+        assert np.array_equal(again[1], w)
+        if rank == 0:
+            units = {"run": 1, "archive": out["archives"],
+                     "continuing iteration": min(out["iterations"], int(cfg.max_iter) - 1),
+                     "staged read": collectives.traffic.staged_reads,
+                     "staged upload": collectives.traffic.staged_uploads}
+            out["contract"] = {
+                "syncs": len(trace.syncs), "sites": sorted(set(trace.syncs)),
+                "reads": len(trace.reads), "uploads": len(trace.uploads), "units": units,
+                "f64": sorted(trace.f64), "want": contracts.expected_counts(
+                    contracts.ROUTE_HOST_READS["ranks"]["sharded_clean"], units)}
+if args["mode"] == "cli":
+    out["launches"] = [fk.fused_fit_moments.launches, tp.build_template.launches]
+out["end_s"] = time.perf_counter() - t_start
+with open(path, "w") as fh:
+    json.dump(out, fh)
+dist.destroy_process_group()
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_ranks(out_dir, n, args):
+    """Start ``n`` rank processes of RANK_CHILD with ``args`` in one group
+    (the ``env://`` variables set, a free port on 127.0.0.1); returns what
+    :func:`_wait_ranks` takes."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n),
+               LOCAL_RANK="0", NCCL_DEBUG="WARN")
+    payload = json.dumps({**args, "out": out_dir, "timeout": RANK_GROUP_TIMEOUT_S})
+    procs, errs = [], []
+    t0 = time.perf_counter()
+    for r in range(n):
+        errs.append(os.path.join(out_dir, f"rank{r}.err"))
+        with open(errs[-1], "w") as fe, open(os.path.join(out_dir, f"rank{r}.out"), "w") as fo:
+            procs.append(subprocess.Popen([sys.executable, "-c", RANK_CHILD, payload],
+                                          env={**env, "RANK": str(r)}, cwd=out_dir,
+                                          stdout=fo, stderr=fe))
+    return out_dir, procs, errs, t0
+
+
+def _wait_ranks(started, timeout_s=RANK_TIMEOUT_S) -> tuple[list, float]:
+    """Wait for the ranks :func:`_start_ranks` started, each killed at
+    ``timeout_s`` from its start.  Returns each rank's (returncode,
+    rank<r>.json or None, the end of its stderr) and the seconds until the
+    last one exited."""
+    out_dir, procs, errs, t0 = started
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    got = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        said = json.load(open(path)) if os.path.exists(path) else None
+        with open(errs[r]) as fh:
+            got.append((p.returncode, said, fh.read()[-3000:]))
+    return got, wall
+
+
+def _ranks_ok(label, got) -> list[dict]:
+    """Every rank exited 0 and wrote its result; returns the results."""
+    for r, (rc, said, err) in enumerate(got):
+        check(rc == 0 and said is not None, f"{label} rank {r}: rc {rc}\n{err}")
+    return [said for _rc, said, _err in got]
+
+
+def _rank_clean(work, label, backend, n, dp, sp, archives, trace, inputs) -> dict:
+    """One sharded clean over ``n`` ranks: every rank's result read back
+    (identical on every rank), launches > 0 on every rank that holds
+    subints, staged copies as the collectives' order predicts, rank 0's
+    syncs held to the ledger when ``trace``; the run's line printed."""
+    import numpy as np
+
+    out_dir = os.path.join(work, label)
+    got, wall = _wait_ranks(_start_ranks(out_dir, n, {
+        "mode": "clean", "backend": backend, "dp": dp, "sp": sp, "trace": trace,
+        "cubes": [inputs[j][0] for j in archives], "weights": [inputs[j][1] for j in archives]}))
+    said = _ranks_ok(label, got)
+    results = []
+    for r in range(n):
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as z:
+            results.append({k: z[k] for k in z.files})
+        check(said[r]["backend"] == backend and said[r]["device"] == "cuda:0",
+              f"{label} rank {r}: {said[r]['backend']} on {said[r]['device']}")
+        for k in ("test", "w", "loops", "done"):
+            check(np.array_equal(results[r][k], results[0][k], equal_nan=True),
+                  f"{label}: rank {r}'s {k} differs from rank 0's")
+        fit, tmpl = said[r]["launches"]
+        check(fit > 0 and tmpl > 0, f"{label} rank {r}: launches {fit}, {tmpl}")
+        t = said[r]["traffic"]
+        k, iters = said[r]["coords"][1], said[r]["iterations"]
+        staged = backend == "gloo"
+        want = (2 * iters if staged else 0,
+                ((k > 0) + (k < sp - 1) + 1) * iters if staged else 0)
+        check((t["staged_reads"], t["staged_uploads"]) == want,
+              f"{label} rank {r}: staged copies {t['staged_reads']}, {t['staged_uploads']} in "
+              f"{iters} iterations, the collectives' order predicts {want}")
+    if trace:
+        c = said[0]["contract"]
+        check(c["syncs"] == c["reads"] + c["uploads"] == c["want"]["read"] + c["want"]["upload"]
+              and c["reads"] == c["want"]["read"] and not c["f64"],
+              f"{label} rank 0 against the ledger: {c}")
+        log(f"  {label} rank 0 against the route contract: {c['syncs']} syncs = "
+            f"{c['want']['read']} reads + {c['want']['upload']} uploads for {c['units']} "
+            f"(ROUTE_HOST_READS['ranks'])")
+    walls = [s["wall_s"] for s in said]
+    per_iter = [(s["traffic"]["chain_s"] / max(s["iterations"], 1),
+                 s["traffic"]["gathered_bytes"] / max(s["iterations"], 1),
+                 s["traffic"]["staged_bytes"] / max(s["iterations"], 1)) for s in said]
+    log(f"  {label}: backend {backend}, {n} rank(s) on cuda:0 (dp={dp}, sp={sp}), clean wall "
+        f"{max(walls):.4f}s (ranks " + ", ".join(f"{w:.4f}" for w in walls) + "), "
+        f"iterations {[s['iterations'] for s in said]}; per iteration and rank: template "
+        f"chain " + ", ".join(f"{c * 1e3:.3f}" for c, _, _ in per_iter) + " ms, gathered "
+        + ", ".join(f"{g / 1e6:.3f}" for _, g, _ in per_iter) + " MB, staged "
+        + ", ".join(f"{s_ / 1e6:.3f}" for _, _, s_ in per_iter) + " MB; launches "
+        + str([s["launches"] for s in said]) + f"; processes {wall:.1f}s: rank 0's "
+        f"imports {said[0]['import_s']:.1f}s, group join {said[0]['init_s']:.1f}s, ready "
+        f"(kernels, cubes mapped, mesh) at {said[0]['ready_s']:.1f}s, done at "
+        f"{said[0]['end_s']:.1f}s of its own clock")
+    return {"result": results[0], "launches": [sum(s["launches"][i] for s in said)
+                                               for i in (0, 1)]}
+
+
+def _ranks_refused(started) -> str:
+    """Two nccl ranks on one card (started by :func:`_start_ranks`): the
+    first collective must fail; returns NCCL's own error text."""
+    got, wall = _wait_ranks(started, timeout_s=60)
+    errors = [said.get("error") if said else None for _rc, said, _err in got]
+    lines = [ln.strip() for _rc, _said, err in got for ln in err.splitlines()
+             if "NCCL WARN" in ln or "Duplicate GPU" in ln]
+    check(any(errors) or any(rc != 0 for rc, _s, _e in got),
+          f"two nccl ranks on one card were not refused: {got}")
+    tails = [err.strip().splitlines()[-1] for _rc, _said, err in got if err.strip()]
+    text = (lines or [e for e in errors if e] or tails or ["no error text"])[0]
+    log(f"  nccl, 2 ranks on cuda:0: refused as expected in {wall:.1f}s: {text[:400]}")
+    return text
+
+
+def _ranks_cli(work, lofar) -> list[int]:
+    """Two gloo ranks each run cli.main over the service phase's three
+    LOFAR .ictb archives: slices [p0, p2] and [p1], r.json.p0 and
+    r.json.p1 and no r.json, clean.log naming the whole invocation, each
+    cleaned archive's weights, loops and converged those of the batch
+    phase's one-process dispatch of the same cubes."""
+    import numpy as np
+
+    out_dir = os.path.join(work, "cli_ranks")
+    paths = list(lofar["service_paths"])
+    refs = dict(zip(paths, lofar["service_refs"][1:]))
+    got, wall = _wait_ranks(_start_ranks(out_dir, 2, {"mode": "cli", "backend": "gloo",
+                                                     "paths": paths}))
+    said = _ranks_ok("cli_ranks", got)
+    check([s["slice"] for s in said] == [paths[0::2], paths[1::2]],
+          f"cli_ranks: slices {[s['slice'] for s in said]}")
+    check(all(s["rc"] == 0 for s in said), f"cli_ranks: rcs {[s['rc'] for s in said]}")
+    check(not os.path.exists(os.path.join(out_dir, "r.json")), "cli_ranks: r.json written")
+    nsub, nchan = LOFAR[:2]
+    for r, s in enumerate(said):
+        reps = json.load(open(os.path.join(out_dir, f"r.json.p{r}")))
+        check([rep["path"] for rep in reps] == s["slice"], f"cli_ranks: r.json.p{r} {reps}")
+        for rep in reps:
+            w, loops, done = refs[rep["path"]]
+            check(rep["error"] is None and np.array_equal(
+                _ictb_weights(rep["out_path"], nsub, nchan), w)
+                and (rep["loops"], rep["converged"]) == (loops, done),
+                f"cli_ranks: {rep['path']} differs from the one-process dispatch: {rep}")
+            os.remove(rep["out_path"])
+        check(s["launches"][0] > 0 and s["launches"][1] > 0,
+              f"cli_ranks rank {r}: launches {s['launches']}")
+    lines = open(os.path.join(out_dir, "clean.log")).read().strip().splitlines()
+    check(len(lines) == len(paths) and all(all(p in ln for p in paths) for ln in lines),
+          f"cli_ranks: clean.log {lines}")
+    log(f"  cli_ranks: 2 gloo ranks on cuda:0 each ran cli.main over {len(paths)} LOFAR .ictb "
+        f"archives: slices {[len(s['slice']) for s in said]}, r.json.p0 and r.json.p1 (no "
+        f"r.json), masks, loops and converged the batch phase's, clean.log the whole "
+        f"invocation; CLI walls " + ", ".join(f"{s['wall_s']:.2f}" for s in said)
+        + f" s, processes {wall:.1f}s; launches {[s['launches'] for s in said]}")
+    return [sum(s["launches"][i] for s in said) for i in (0, 1)]
+
+
+def phase_ranks(lofar) -> tuple[dict, dict]:
+    """The multi-process tier on one card: ranks in child processes on
+    cuda:0.  (a) two gloo ranks, ``sharded_clean_single`` of phase 4's
+    cube over sp=2: the oracle's mask, loops and converged, the score
+    drift within 5e-5, rank 0's syncs against the route contract; (b)
+    four gloo ranks, dp=2 x sp=2, ``sharded_clean`` of the batch phase's
+    seeds 42 and 101: the batch phase's masks; (c) one nccl rank, (a) at
+    sp=1 through the device-tensor path; two nccl ranks on one card
+    refused, NCCL's error printed; (d) the directory split through the
+    CLI.  Returns each kernel's launches by path, summed over the ranks."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = os.path.join(os.path.dirname(lofar["path"]), "ranks")
+    inputs = lofar["ranks_inputs"]
+    ora = lofar["oracle"]
+    refs = lofar["ranks_refs"]
+    log(f"ranks: phase 4's cube and the batch phase's seed-101 cube as .npy, memory-mapped "
+        f"by every rank (each uploads its slice only); ranks share cuda:0")
+    fit, tmpl, results = {}, {}, {}
+    for label, backend, n, dp, sp, archives, trace in RANK_RUNS:
+        got = _rank_clean(work, label, backend, n, dp, sp, archives, trace, inputs)
+        fit[label], tmpl[label] = got["launches"]
+        res = results[label] = got["result"]
+        for j, src in enumerate(archives):
+            want_t, want_w, want_loops, want_done = refs[src]
+            check(np.array_equal(res["w"][j], want_w)
+                  and (int(res["loops"][j]), bool(res["done"][j])) == (want_loops, want_done),
+                  f"{label} archive {j}: mask/loops/converged differ from the batch phase's")
+            diff = float(np.nanmax(np.abs(res["test"][j] - want_t)))
+            log(f"  {label} archive {j}: max |score difference| against the one-card batched "
+                f"route {diff:.3e}")
+        check(np.array_equal(res["w"][0], ora.weights)
+              and (int(res["loops"][0]), bool(res["done"][0])) == (ora.loops, ora.converged),
+              f"{label}: archive 0 differs from the oracle")
+        drift = _drift(res["test"][0], ora.test_results)
+        check(drift <= 5e-5, f"{label}: score drift {drift:.3e} against the oracle")
+        log(f"  {label}: archive 0 the oracle's mask, loops and converged; score drift "
+            f"{drift:.3e} (bound 5e-05)")
+    # The refusal beside the CLI run: it fails at its first collective,
+    # within seconds of its start, and the phase does not wait for it alone.
+    refused = _start_ranks(os.path.join(work, "nccl_refused"), 2,
+                           {"mode": "nccl_refused", "backend": "nccl"})
+    fit["cli_ranks"], tmpl["cli_ranks"] = _ranks_cli(work, lofar)
+    lofar["nccl_refused"] = _ranks_refused(refused)
+    for p in inputs.values():
+        for f in p:
+            os.remove(f)
+    phase_s = time.perf_counter() - t0
+    log(f"ranks: every run held; the phase {phase_s:.1f}s")
+    check(phase_s <= RANKS_PHASE_S, f"the ranks phase took {phase_s:.1f}s, over {RANKS_PHASE_S}s")
+    return fit, tmpl
+
+
 #: Seeds of the fuzz phase from 1000, float32 and --x64: each mode of
 #: tools_torch/fuzz_sweep.py on each seed, within ~60 s side by side.
 FUZZ_SEEDS, FUZZ_SEEDS_X64 = 16, 8
@@ -4166,6 +4565,9 @@ def main() -> int:
             by_path[name], template_by_path[name] = n_fit, n_t
         by_path["contracts"], template_by_path["contracts"] = timed(
             "contracts", phase_contracts, lofar)
+        fit_ranks, template_ranks = timed("ranks", phase_ranks, lofar)
+        by_path.update(fit_ranks)
+        template_by_path.update(template_ranks)
         fuzz = timed("fuzz", phase_fuzz)
         by_path["fuzz"] = fuzz["f32"]["fused_fit_moments"]
         template_by_path["fuzz"] = fuzz["f32"]["ordered_template"]

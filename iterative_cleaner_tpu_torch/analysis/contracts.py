@@ -89,6 +89,9 @@ UNITS = {
     "continuing iteration": "each iteration before the last one allowed",
     "dense pass": "each streamed template pass",
     "sparse update": "each template advanced by the sparse update",
+    "archive": "each archive a rank holds",
+    "staged read": "each collective operand parallel/collectives.py copied to the host",
+    "staged upload": "each collective result parallel/collectives.py copied to the card",
 }
 
 
@@ -167,6 +170,26 @@ ROUTE_HOST_READS: dict[str, dict[str, tuple[HostReads, ...]]] = {
             HostReads("read", 1, "continuing iteration",
                       "active.any(): whether an archive is still iterating "
                       "(the last allowed iteration does not ask)"),),
+    },
+    "ranks": {
+        "sharded_clean": (
+            HostReads("upload", 2, "archive",
+                      "the rank's subints of the cube and the archive's whole "
+                      "original weights (shard_batch)"),
+            HostReads("read", 1, "continuing iteration",
+                      "active.any() of the rank's dp slice: the same on every "
+                      "rank of it, from the same gathered maps (the last "
+                      "allowed iteration does not ask)"),
+            HostReads("read", 1, "run",
+                      "every slice's results to the host (gather_results: "
+                      "under gloo before the gather, under nccl after it)"),
+            HostReads("read", 1, "staged read",
+                      "a collective's operand to the host under gloo with the "
+                      "rank on a card (the template sent on or broadcast, the "
+                      "maps gathered): gloo takes host tensors"),
+            HostReads("upload", 1, "staged upload",
+                      "a collective's result back to the card under gloo (the "
+                      "template received or broadcast, the gathered maps)"),),
     },
 }
 
@@ -476,6 +499,19 @@ def _entry_points(D, w0, Db, w0b, device, block):
         n = int(out[4].max())
         return {"run": 1, "continuing iteration": min(n, max_iter - 1)}
 
+    def ranks(trace, kernel):
+        from iterative_cleaner_tpu_torch.parallel import collectives
+        from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean
+
+        with _rank_group(device) as mesh:
+            collectives.traffic.reset()
+            with trace:
+                out = sharded_clean([D], [w0], cfg.replace(kernel=kernel), mesh)
+        n = int(out[2][0]) if out[3][0] else max_iter
+        return {"run": 1, "archive": 1, "continuing iteration": min(n, max_iter - 1),
+                "staged read": collectives.traffic.staged_reads,
+                "staged upload": collectives.traffic.staged_uploads}
+
     return [
         ("stepwise", "clean_step", one_call(
             lambda Dt, wt, vt, new_w, T, k: tb.clean_step(
@@ -496,7 +532,29 @@ def _entry_points(D, w0, Db, w0b, device, block):
         ("chunked", "ChunkedTorchCleaner.step", loop(
             lambda c: ChunkedTorchCleaner(D, w0, c, block=block, device=device), True)),
         ("batch", "batched_fused_clean", batch),
+        ("ranks", "sharded_clean", ranks),
     ]
+
+
+@contextlib.contextmanager
+def _rank_group(device):
+    """A mesh over the ranks of the default process group with this rank on
+    ``device``: the process's own group, else a one-rank ``gloo`` group made
+    for the run (an in-memory store) and destroyed after it.  Under gloo on
+    a card the collectives stage through the host."""
+    import torch
+    import torch.distributed as dist
+
+    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh(group=dist.group.WORLD, devices=[torch.device(device)])
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 @contextlib.contextmanager

@@ -292,7 +292,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             reports = driver.run(args.archive, cfg, device=args.device)
     if args.report:
-        driver.write_report(reports, args.report)
+        driver.write_report(reports, args.report, cfg)
     return 0 if all(r.error is None for r in reports) else 1
 
 

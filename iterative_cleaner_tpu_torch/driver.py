@@ -11,8 +11,12 @@ the online ``--follow`` tail (``run_follow``, ``:423-451``) and the
 threshold sweep (``run_sweep``, ``:483-526``), with the JAX package's
 telemetry: the ``job_submitted`` event and the ``clean_archive`` span per
 archive, and the ``--trace`` capture (``obs/profiling.profile_trace``)
-around each clean, the batch and each sweep.  The multi-host split
-(``partition_paths``) is not yet ported: on one process it is the identity.
+around each clean, the batch and each sweep.  With the torch backend and
+several processes in a ``torch.distributed`` group, each process cleans
+(or sweeps) its round-robin slice of the paths
+(``parallel/multihost.partition_paths``; the identity on one process),
+clean.log keeps the whole invocation, and ``--report`` gets a
+``.p{rank}`` suffix per process.
 """
 
 from __future__ import annotations
@@ -223,8 +227,18 @@ def process_archive(path: str, cfg: CleanConfig, log_dir: str = ".",
     return report
 
 
-def write_report(reports: list[ArchiveReport], path: str) -> None:
-    """Machine-readable batch summary (--report), written atomically."""
+def write_report(reports: list[ArchiveReport], path: str,
+                 cfg: CleanConfig | None = None) -> None:
+    """Machine-readable batch summary (--report), written atomically.  With
+    the torch backend in a run of several processes each holds only its
+    slice of the batch, so the path gets a ``.p{rank}`` suffix: the
+    processes never replace one another's file."""
+    if cfg is not None and cfg.backend == "torch":
+        from iterative_cleaner_tpu_torch.parallel.multihost import process_topology
+
+        rank, n_ranks = process_topology()
+        if n_ranks > 1:
+            path = f"{path}.p{rank}"
     tmp = f"{path}.part"
     with open(tmp, "w") as fh:
         json.dump([dataclasses.asdict(r) for r in reports], fh, indent=2)
@@ -388,6 +402,11 @@ def run_sweep(paths: list[str], cfg: CleanConfig, pairs: list[tuple[float, float
         print("error: --sweep requires --backend=torch", file=sys.stderr)
         return [ArchiveReport(path=p, out_path=None, error="--sweep requires backend='torch'")
                 for p in paths]
+    # The same split as run(): else every process would sweep every archive
+    # and race on the same _sweep.npz outputs.
+    from iterative_cleaner_tpu_torch.parallel.multihost import partition_paths
+
+    paths = partition_paths(paths)
     reports = []
     for path in paths:
         try:
@@ -409,10 +428,18 @@ def run(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
         device="cuda") -> list[ArchiveReport]:
     """Sequential batch with per-archive failure isolation and one-archive
     read-ahead: a loader thread decodes archive k+1 while archive k cleans.
-    ``cfg.resume`` skips archives already cleaned; ``cfg.sharded_batch``
-    hands the rest to :func:`run_sharded_batch`."""
-    # clean.log records the full invocation even when --resume trims it.
+    With the torch backend, this process's slice of ``paths``
+    (``partition_paths``).  ``cfg.resume`` skips archives already cleaned;
+    ``cfg.sharded_batch`` hands the rest to :func:`run_sharded_batch`."""
+    # clean.log records the full invocation even when --resume or the
+    # process split trims it.
     invocation = list(paths)
+    if cfg.backend == "torch":
+        # Each process cleans its round-robin slice (the identity on one
+        # process); the numpy backend is never split, as in the JAX package.
+        from iterative_cleaner_tpu_torch.parallel.multihost import partition_paths
+
+        paths = partition_paths(paths)
     n_total = len(paths)
     paths, skipped = split_resumable(paths, cfg)
     if cfg.sharded_batch:

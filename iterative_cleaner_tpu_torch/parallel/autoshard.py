@@ -23,8 +23,12 @@ for one piece), but such a cube is far below any card's memory.  Under
 mask history (the FFT pieces are cut by bytes, so the cube factors hold),
 as ``iterative_cleaner_tpu/parallel/autoshard.py:142-180`` counts 8-byte
 elements.
-The multi-device reroute (``maybe_clean_sharded``, ``single_archive_mesh``)
-belongs to a later slice; on one card it declines in the JAX package too.
+One oversized archive over the ranks of a process group:
+:func:`single_archive_mesh` (``:101-133`` of the JAX module) gives its
+subints to the ``sp`` ranks of a one-slice mesh, which
+``parallel/sharded.sharded_clean_single`` cleans.  The JAX package's
+automatic reroute over the cards of one process (``maybe_clean_sharded``)
+is not ported (ROADMAP.md queue A.2); on one card it declines there too.
 
 The directory batch has no JAX counterpart here (the JAX package fits a
 bucket by spreading it over ``dp``): on one card a bucket is cut into
@@ -179,3 +183,37 @@ def archives_per_dispatch(shape: tuple[int, ...], cfg, device=None) -> int | Non
     use_kernel = resolve_use_kernel(cfg.replace(x64=False), int(shape[-1]), dev)
     one = batch_working_set_bytes(shape, cfg, use_kernel, 1)
     return int(hbm * HBM_USABLE_FRACTION // one)
+
+
+def subint_ranks(nsub: int, n_ranks: int) -> int:
+    """The ``sp`` extent of one archive's mesh over ``n_ranks`` ranks: the
+    prime factors of ``n_ranks`` peeled, smallest first, while they divide
+    ``nsub`` (the JAX package's peel; the factors it would give to ``tp``
+    are left out)."""
+    sp, m, p = 1, int(n_ranks), 2
+    while m > 1 and p <= m:
+        if m % p == 0 and int(nsub) % (sp * p) == 0:
+            sp *= p
+            m //= p
+        else:
+            p += 1
+    return sp
+
+
+def single_archive_mesh(shape: tuple[int, ...], n_ranks: int | None = None):
+    """A (dp=1, sp) mesh over the first ``sp`` ranks of the default process
+    group for one archive of ``shape``: ``sp`` = :func:`subint_ranks` of
+    ``n_ranks`` (default: the group's size); the other ranks stay out of
+    the mesh, do no device work and receive the result.  None where ``sp``
+    is 1: nothing to shard (the JAX package declines there too).  Every
+    rank of the group calls it: ``make_mesh`` makes process groups."""
+    import torch.distributed as dist
+
+    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+
+    if n_ranks is None:
+        n_ranks = dist.get_world_size()
+    sp = subint_ranks(int(shape[0]), n_ranks)
+    if sp == 1:
+        return None
+    return make_mesh(n_devices=sp, dp=1, sp=sp, tp=1, group=dist.group.WORLD)

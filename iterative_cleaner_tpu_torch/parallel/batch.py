@@ -34,7 +34,7 @@ from iterative_cleaner_tpu_torch.models.surgical import finalize_weights
 from iterative_cleaner_tpu_torch.obs import forensics
 from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
 from iterative_cleaner_tpu_torch.parallel.autoshard import archives_per_dispatch
-from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+from iterative_cleaner_tpu_torch.parallel.multihost import local_mesh
 from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean
 
 
@@ -126,7 +126,7 @@ def clean_directory_batch(paths: list[str], cfg: CleanConfig, mesh=None) -> list
     """
     _require_torch_backend(cfg)
     if mesh is None:
-        mesh = make_mesh()
+        mesh = local_mesh()
     items = [BatchItem(path=p) for p in paths]
 
     def load(item: BatchItem):
@@ -179,7 +179,7 @@ def clean_directory_streaming(paths: list[str], cfg: CleanConfig, mesh=None,
     """
     _require_torch_backend(cfg)
     if mesh is None:
-        mesh = make_mesh()
+        mesh = local_mesh()
     items = [BatchItem(path=p) for p in paths]
     caps: dict[tuple, int] = {}
 

@@ -54,8 +54,10 @@ from iterative_cleaner_tpu_torch.ops.stats import diagnostics, fft_diagnostic, s
 from iterative_cleaner_tpu_torch.ops.template import build_template, fit_and_subtract
 
 
-def _block_maps(Dblk, template, w0blk, validblk, pulse_region, use_kernel):
-    """The (std, mean, ptp, fft) maps of one block."""
+def block_maps(Dblk, template, w0blk, validblk, pulse_region, use_kernel):
+    """The (std, mean, ptp, fft) maps of one block of subints (a batch's
+    block, ``(a, rows, nchan, nbin)`` with ``(a, nbin)`` templates, too:
+    the rank-sharded route's)."""
     if use_kernel:
         centred, d_mean, d_std, d_ptp = fused_fit_moments(
             Dblk, template, w0blk, validblk, pulse_region=pulse_region)
@@ -160,8 +162,8 @@ class ChunkedTorchCleaner:
         template = self._template_for(w_host)
 
         def block_stats(lo, hi, Dblk):
-            return _block_maps(Dblk, template, self._w0[lo:hi], self._valid[lo:hi],
-                               self._pr, self._use_kernel)
+            return block_maps(Dblk, template, self._w0[lo:hi], self._valid[lo:hi],
+                              self._pr, self._use_kernel)
 
         maps = self._stream(block_stats)
         d_std, d_mean, d_ptp, d_fft = (torch.cat([m[k] for m in maps]) for k in range(4))

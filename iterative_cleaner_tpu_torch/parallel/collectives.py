@@ -1,0 +1,178 @@
+"""What crosses ranks in the rank-sharded clean: the one module that runs
+``torch.distributed`` collectives.
+
+No JAX counterpart: there GSPMD inserts the collectives from the input
+shardings (``iterative_cleaner_tpu/parallel/sharded.py:1-13``).  A rank of
+a mesh over ranks (``parallel/mesh.py``) holds a contiguous subint block of
+its ``dp`` slice's archives; each iteration every rank of the slice's
+``sp`` group calls, in this order:
+
+- :func:`continue_template` — the template in the oracle's order: rank
+  ``k`` receives the running ``(a, nbin)`` sum from rank ``k-1``, continues
+  it over its block (``ops/template.build_template(..., init=)``, as the
+  chunked route continues block after block), sends it on, and the last
+  rank broadcasts the finished template to the group.  The hops are
+  serial, so the chain's floor is paid once across the ranks, as on one
+  card; an all-reduce would sum in another order and drift the scores;
+- :func:`all_gather_maps` — the four ``(a, rows, nchan)`` maps gathered
+  along subints, in rank order, to every rank of the group;
+
+and at the end every rank of the mesh's group calls :func:`gather_results`,
+which hands each ``dp`` slice's results to every rank (the JAX package's
+``_to_host``).
+
+Under ``gloo`` every collective takes host tensors: a device operand is
+copied to the host and the result back, here and nowhere else, and
+:data:`traffic` counts the copies.  ``gloo``'s support for CUDA tensors
+differs by operation and by torch build, so it is never handed one.
+Under ``nccl`` device tensors pass as they are.  Host buffers are made
+from numpy arrays, so the route contracts (``analysis/contracts.py``) see
+them as host data.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from iterative_cleaner_tpu_torch.ops.template import build_template
+
+
+@dataclasses.dataclass
+class Traffic:
+    """This process's collective traffic since the last :meth:`reset`: the
+    bytes its receives, broadcasts and gathers delivered to it, its own
+    part of a gather included (``gathered_bytes``), the copies staged
+    through the host under gloo (``staged_reads`` device to host,
+    ``staged_uploads`` host to device, ``staged_bytes`` both ways) and the
+    host seconds spent in :func:`continue_template` (``chain_s``: the
+    build, the waits on the ranks before and the hops)."""
+
+    gathered_bytes: int = 0
+    staged_reads: int = 0
+    staged_uploads: int = 0
+    staged_bytes: int = 0
+    chain_s: float = 0.0
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default)
+
+
+traffic = Traffic()
+
+
+def _stages(t: torch.Tensor, mesh) -> bool:
+    return mesh.backend == "gloo" and t.device.type != "cpu"
+
+
+def _host_array(shape, dtype: torch.dtype) -> np.ndarray:
+    return np.empty(shape, dtype=np.dtype(str(dtype).removeprefix("torch.")))
+
+
+def _operand(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` as the backend takes it: its host copy under gloo."""
+    if not _stages(t, mesh):
+        return t
+    traffic.staged_reads += 1
+    traffic.staged_bytes += t.nbytes
+    return t.cpu()
+
+
+def _buffer(like: torch.Tensor, shape, mesh):
+    """An empty receive buffer of ``shape`` where the backend writes: a
+    host array under gloo (the collective writes through :func:`_wire`),
+    else a tensor beside ``like``."""
+    if _stages(like, mesh):
+        return _host_array(shape, like.dtype)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _wire(buf) -> torch.Tensor:
+    """The tensor a collective writes ``buf`` through."""
+    return torch.from_numpy(buf) if isinstance(buf, np.ndarray) else buf
+
+
+def _result(buf, like: torch.Tensor) -> torch.Tensor:
+    """A received buffer on ``like``'s device: a host array is uploaded,
+    through a fresh tensor over it (host data to the route contracts,
+    whatever the collective did with the one it wrote through)."""
+    if not isinstance(buf, np.ndarray):
+        return buf
+    traffic.staged_uploads += 1
+    traffic.staged_bytes += buf.nbytes
+    return torch.from_numpy(buf).to(like.device)
+
+
+def continue_template(D: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """The ``(a, nbin)`` templates of this ``dp`` slice's archives, from
+    this rank's block ``D (a, rows, nchan, nbin)`` under weights ``w (a,
+    rows, nchan)``, continued from the ``sp`` rank before and passed to the
+    one after; every rank of the group returns the finished templates, bit
+    for bit the one-card build over all subints."""
+    t0 = time.perf_counter()
+    peers = mesh.sp_ranks(mesh.coords[0])
+    k = mesh.coords[1]
+    shape = (D.shape[0], D.shape[-1])
+    init = None
+    if k > 0:
+        buf = _buffer(D, shape, mesh)
+        dist.recv(_wire(buf), src=peers[k - 1], group=mesh.sp_group)
+        traffic.gathered_bytes += buf.nbytes
+        init = _result(buf, D)
+    T = build_template(D, w, init=init)
+    if k < len(peers) - 1:
+        dist.send(_operand(T, mesh), dst=peers[k + 1], group=mesh.sp_group)
+    if k == len(peers) - 1:
+        dist.broadcast(_operand(T, mesh), src=peers[-1], group=mesh.sp_group)
+    else:
+        buf = _buffer(D, shape, mesh)
+        dist.broadcast(_wire(buf), src=peers[-1], group=mesh.sp_group)
+        traffic.gathered_bytes += buf.nbytes
+        T = _result(buf, D)
+    traffic.chain_s += time.perf_counter() - t0
+    return T
+
+
+def all_gather_maps(maps, mesh, bounds) -> tuple[torch.Tensor, ...]:
+    """The four ``(a, rows, nchan)`` maps of this rank's block, gathered
+    along subints in ``sp`` order to every rank of the group: four
+    ``(a, nsub, nchan)`` maps.  ``bounds`` are the ``sp`` blocks' ``[lo,
+    hi)`` (blocks may differ by one subint; each is padded to the longest
+    for the gather and trimmed after)."""
+    local = torch.stack(tuple(maps))                 # (4, a, rows, nchan)
+    longest = max(hi - lo for lo, hi in bounds)
+    rows = local.shape[2]
+    if rows < longest:
+        local = torch.cat((local, local.new_zeros(
+            (*local.shape[:2], longest - rows, local.shape[3]))), dim=2)
+    operand = _operand(local.contiguous(), mesh)
+    parts = [_buffer(local, operand.shape, mesh) for _ in bounds]
+    dist.all_gather([_wire(p) for p in parts], operand, group=mesh.sp_group)
+    traffic.gathered_bytes += sum(p.nbytes for p in parts)
+    trimmed = [p[:, :, :hi - lo] for p, (lo, hi) in zip(parts, bounds)]
+    full = (np.concatenate(trimmed, axis=2) if _stages(local, mesh)
+            else torch.cat(trimmed, dim=2))
+    return tuple(_result(full, local).unbind(0))
+
+
+def gather_results(rows: torch.Tensor, mesh) -> np.ndarray:
+    """Every rank's ``rows`` — a tensor of one shape on every rank of the
+    mesh's group — to the host of every rank, in group order:
+    ``(world, *rows.shape)``.  One collective and one read of the device,
+    the run's fetch: under gloo before the gather (not counted as
+    staged, since the fetch is made either way), under nccl after it."""
+    if mesh.backend != "gloo":
+        parts = [torch.empty_like(rows) for _ in mesh.group_ranks]
+        dist.all_gather(parts, rows.contiguous(), group=mesh.group)
+        traffic.gathered_bytes += sum(p.nbytes for p in parts)
+        return torch.stack(parts).cpu().numpy()
+    operand = rows.contiguous().cpu()
+    parts = [_host_array(operand.shape, operand.dtype) for _ in mesh.group_ranks]
+    dist.all_gather([_wire(p) for p in parts], operand, group=mesh.group)
+    traffic.gathered_bytes += sum(p.nbytes for p in parts)
+    return np.stack(parts)

@@ -1,24 +1,55 @@
-"""Device mesh for the cleaner's parallel axes.
+"""Device mesh for the cleaner's parallel axes: one device, or the ranks of
+a process group.
 
-Port of ``iterative_cleaner_tpu/parallel/mesh.py:30-80``.  The JAX package
+Port of ``iterative_cleaner_tpu/parallel/mesh.py:30-89``.  The JAX package
 maps its parallelism onto a ('dp', 'sp', 'tp') mesh: archives over ``dp``,
 subints over ``sp``, channels over ``tp``, with GSPMD inserting the
-collectives.  The port runs the directory batch on one card, where the
-batch is a leading archive axis and needs no mesh; :func:`factor_mesh` is
-kept as it is, and :func:`make_mesh` builds the one-device mesh the batch
-runs on.  A mesh over more than one device (``dp`` over several local
-cards, ``sp``/``tp`` sharding with NCCL) is queued in ROADMAP.md (queue
-A, several cards) and raises until it lands — it never quietly runs on one
-card.
+collectives.  In PyTorch a device belongs to one process, so a mesh over
+several devices is a mesh over the ranks of a ``torch.distributed``
+process group, one device per rank:
+
+- without a process group (or with ``devices`` given and no ``group``) the
+  mesh is one device, where the directory batch runs as a leading archive
+  axis (``parallel/sharded.py``);
+- over a group's ranks, the ``dp`` slices take archives round-robin and
+  the ``sp`` ranks of a slice take contiguous subint blocks;
+  ``parallel/collectives.py`` carries what crosses ranks.  Ranks may share
+  one card under ``gloo`` (NCCL refuses two ranks on one device); the same
+  code runs NCCL across distinct cards;
+- ``tp`` (channels) raises: the template is one chain of dependent adds in
+  the oracle's (subint, channel) order, which a channel split would cut
+  into ``nsub * tp`` pieces on alternating ranks.  Summing the template in
+  another order (a cuBLAS matrix-vector product) drifts the last scores
+  5.17e-5 from the oracle's at 256 x 1024 x 1024, beyond the 5e-5 bound;
+- ``dp`` over several cards of one process (the JAX package's local-device
+  mesh) is not ported (ROADMAP.md queue A.2) and raises: a process holds
+  one device of a mesh.
+
+:func:`initialize_distributed` is the ranks' entry: it joins the group
+from the ``env://`` variables ``torchrun`` sets and records this rank's
+device, which :func:`make_mesh` and ``parallel/multihost.local_mesh`` use.
 """
 
 from __future__ import annotations
 
+import datetime
+import os
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 AXES = ("dp", "sp", "tp")
+
+#: Seconds a collective (and the group's start) may wait for the other
+#: ranks before it raises: a rank that died fails its peers instead of
+#: hanging them.
+DEFAULT_GROUP_TIMEOUT_S = 300.0
+
+#: This process's device and its group's timeout, as
+#: :func:`initialize_distributed` set them.
+_rank_device: torch.device | None = None
+_group_timeout_s: float = DEFAULT_GROUP_TIMEOUT_S
 
 
 def factor_mesh(n: int) -> tuple[int, int, int]:
@@ -36,28 +67,101 @@ def factor_mesh(n: int) -> tuple[int, int, int]:
     return tuple(out)
 
 
+def subint_bounds(nsub: int, sp: int) -> list[tuple[int, int]]:
+    """The contiguous ``[lo, hi)`` subint block of each ``sp`` index: the
+    first ``nsub % sp`` blocks one subint longer."""
+    base, extra = divmod(int(nsub), int(sp))
+    out, lo = [], 0
+    for k in range(int(sp)):
+        hi = lo + base + (1 if k < extra else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
 @dataclass(frozen=True)
 class Mesh:
     """The devices a batch runs on, with the JAX mesh's axis names and
-    extents (``shape["dp"]`` etc.)."""
+    extents (``shape["dp"]`` etc.).
+
+    A mesh over ranks also holds its process ``group`` and its
+    ``backend``, the group's ranks (``group_ranks``, global ranks in group
+    order; the mesh is the first ``dp*sp`` of them, ``dp``-major),
+    this rank's ``(dp, sp)`` ``coords`` (None for a rank of the group left
+    out of the mesh: it does no device work and receives the result) and
+    its ``sp_group``, the ranks of its ``dp`` slice.  ``devices`` is this
+    process's one device."""
 
     devices: tuple[torch.device, ...]
     shape: dict
+    group: object = None
+    backend: str = ""
+    group_ranks: tuple[int, ...] = ()
+    coords: tuple[int, int] | None = None
+    sp_group: object = None
 
     @property
     def device(self) -> torch.device:
-        """The one device of a one-device mesh."""
+        """This process's device."""
         return self.devices[0]
+
+    @property
+    def spans_ranks(self) -> bool:
+        """Whether the mesh is over the ranks of a process group."""
+        return self.group is not None
+
+    @property
+    def ranks(self) -> tuple[int, ...]:
+        """The global ranks in the mesh, ``dp``-major."""
+        return self.group_ranks[:self.shape["dp"] * self.shape["sp"]]
+
+    def sp_ranks(self, dp_index: int) -> tuple[int, ...]:
+        """The global ranks of ``dp`` slice ``dp_index``, in ``sp`` order."""
+        sp = self.shape["sp"]
+        return self.ranks[dp_index * sp:(dp_index + 1) * sp]
+
+
+def rank_device() -> torch.device:
+    """This process's device: the one :func:`initialize_distributed`
+    chose, else ``cuda`` (raises without a card)."""
+    if _rank_device is not None:
+        return _rank_device
+    from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+
+    return resolve_device("cuda")
+
+
+def _extents(n: int, dp, sp, tp) -> tuple[int, int, int]:
+    if dp is None and sp is None and tp is None:
+        dp, sp, tp = factor_mesh(n)
+    dp, sp, tp = dp or 1, sp or 1, tp or 1
+    if dp * sp * tp != n:
+        raise ValueError(f"dp*sp*tp = {dp * sp * tp} != n_devices = {n}")
+    if tp > 1:
+        raise NotImplementedError(
+            f"tp={tp}: channel sharding would cut the template's chain of adds, in the "
+            "oracle's (subint, channel) order, into nsub*tp pieces on alternating ranks; "
+            "summed in another order the scores drift past the 5e-5 bound. Shard subints "
+            "(sp) and archives (dp)")
+    return dp, sp, tp
 
 
 def make_mesh(n_devices: int | None = None, dp: int | None = None, sp: int | None = None,
-              tp: int | None = None, devices=None) -> Mesh:
-    """A ('dp', 'sp', 'tp') mesh over the first ``n_devices`` of
-    ``devices``, by default the one CUDA device the caller runs on
-    (``cuda``; ``devices=["cpu"]`` for the CPU).  Extents default to
-    :func:`factor_mesh`; ``dp*sp*tp`` must equal the device count.  More
-    than one device raises NotImplementedError: the multi-device batch is
-    not ported yet."""
+              tp: int | None = None, devices=None, group=None) -> Mesh:
+    """A ('dp', 'sp', 'tp') mesh.  Extents default to :func:`factor_mesh`;
+    ``dp*sp*tp`` must equal the device count, and ``tp`` must be 1.
+
+    Over ranks when ``group`` is given, or when ``devices`` is not and a
+    default process group is initialized: the first ``n_devices`` ranks of
+    the group (all by default), this rank on ``devices[0]`` or
+    :func:`rank_device`.  Every rank of the default group must call it, in
+    the same order as its other group calls: it makes one ``sp`` group per
+    ``dp`` slice.  Otherwise one device, by default the CUDA device the
+    caller runs on (``cuda``; ``devices=["cpu"]`` for the CPU)."""
+    if group is None and devices is None and dist.is_available() and dist.is_initialized():
+        group = dist.group.WORLD
+    if group is not None:
+        return _rank_mesh(n_devices, dp, sp, tp, devices, group)
     if devices is None:
         from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
 
@@ -67,15 +171,75 @@ def make_mesh(n_devices: int | None = None, dp: int | None = None, sp: int | Non
         n_devices = len(devices)
     if not 1 <= n_devices <= len(devices):
         raise ValueError(f"n_devices = {n_devices} with {len(devices)} devices given")
-    devices = devices[:n_devices]
-    if dp is None and sp is None and tp is None:
-        dp, sp, tp = factor_mesh(n_devices)
-    dp, sp, tp = dp or 1, sp or 1, tp or 1
-    if dp * sp * tp != n_devices:
-        raise ValueError(f"dp*sp*tp = {dp * sp * tp} != n_devices = {n_devices}")
     if n_devices > 1:
         raise NotImplementedError(
-            f"a mesh over {n_devices} devices (dp={dp}, sp={sp}, tp={tp}) is not ported "
-            "yet (ROADMAP.md queue A, several cards: dp over local cards, sp/tp sharding "
-            "with NCCL); the port's batch runs on one device")
-    return Mesh(devices=devices, shape=dict(zip(AXES, (dp, sp, tp))))
+            f"a mesh over {n_devices} devices of one process is not ported (ROADMAP.md "
+            "queue A.2); run one rank per card (initialize_distributed) and mesh the ranks")
+    return Mesh(devices=devices[:1], shape=dict(zip(AXES, _extents(1, dp, sp, tp))))
+
+
+def _rank_mesh(n_devices, dp, sp, tp, devices, group) -> Mesh:
+    group_ranks = tuple(dist.get_process_group_ranks(group))
+    n = len(group_ranks) if n_devices is None else int(n_devices)
+    if not 1 <= n <= len(group_ranks):
+        raise ValueError(f"n_devices = {n} with {len(group_ranks)} ranks in the group")
+    dp, sp, tp = _extents(n, dp, sp, tp)
+    device = torch.device(devices[0]) if devices else rank_device()
+    backend = dist.get_backend(group)
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"an nccl group runs on CUDA devices, not {device}")
+    me = dist.get_rank()
+    coords, sp_group = None, None
+    timeout = datetime.timedelta(seconds=_group_timeout_s)
+    for i in range(dp):
+        members = list(group_ranks[i * sp:(i + 1) * sp])
+        g = dist.new_group(members, timeout=timeout, backend=backend)
+        if me in members:
+            coords, sp_group = (i, members.index(me)), g
+    return Mesh(devices=(device,), shape=dict(zip(AXES, (dp, sp, tp))), group=group,
+                backend=backend, group_ranks=group_ranks, coords=coords, sp_group=sp_group)
+
+
+def initialize_distributed(backend: str | None = None, device=None,
+                           timeout_s: float = DEFAULT_GROUP_TIMEOUT_S) -> torch.device:
+    """Join the default process group from ``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR`` and ``MASTER_PORT`` (``env://``, as ``torchrun`` sets
+    them), with a timeout of ``timeout_s`` seconds on the group.  Call once
+    per process before any device use.  Returns this rank's device, and
+    records it and the timeout for :func:`make_mesh` (its ``sp`` groups
+    take the same timeout).
+
+    ``device`` defaults to ``cuda:{LOCAL_RANK}`` (``LOCAL_RANK`` defaults to
+    ``RANK``); a rank whose card does not exist raises.  Ranks that share
+    one card say so with ``device="cuda:0"`` (under ``gloo``: NCCL refuses
+    two ranks on one device).  ``backend`` defaults to ``nccl`` for a CUDA
+    device and ``gloo`` for ``cpu``; it is never swapped for another."""
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+               if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"initialize_distributed reads {', '.join(missing)} from the "
+                           "environment (env://, as torchrun sets them)")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if device is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+    device = torch.device(device)
+    if device.type == "cuda":
+        from iterative_cleaner_tpu_torch.utils.device_probe import init_watchdog
+
+        with init_watchdog("initialize_distributed"):
+            n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            index = 0 if device.index is None else device.index
+            if index >= n_cards:
+                raise RuntimeError(
+                    f"rank {rank}: {device} does not exist (this host has {n_cards} CUDA "
+                    "device(s)); ranks that share a card pass device='cuda:0' explicitly")
+            device = torch.device("cuda", index)
+            torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"nccl runs on CUDA devices, not {device}")
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    global _rank_device, _group_timeout_s
+    _rank_device, _group_timeout_s = device, float(timeout_s)
+    return device

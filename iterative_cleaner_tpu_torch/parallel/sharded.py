@@ -1,10 +1,10 @@
-"""Multi-archive execution: a leading archive axis on one device.
+"""Multi-archive execution: a leading archive axis on one device, or a
+batch sharded over the ranks of a process group.
 
 Port of ``iterative_cleaner_tpu/parallel/sharded.py:28-161``.  The JAX
 package vmaps the single-archive loop over a leading archive axis and lays
-the batch out on a ('dp', 'sp', 'tp') mesh.  The port runs the batch on one
-card (``parallel/mesh.py``), where the vmap becomes the archive axis
-written out:
+the batch out on a ('dp', 'sp', 'tp') mesh.  On a one-device mesh
+(``parallel/mesh.py``) the vmap becomes the archive axis written out:
 
 - each iteration builds one dense template per archive
   (``ops/template.build_templates``), launches the fit/moments kernel once
@@ -20,6 +20,21 @@ written out:
   Each archive's result equals ``fused_clean`` on that archive alone with a
   dense template.
 
+On a mesh over ranks every rank calls :func:`sharded_clean` with the same
+batch and gets the whole host result back, as on the JAX package's
+process-spanning mesh.  A rank uploads only its slice: the archives
+``dp_index::dp`` and the subints of its ``sp`` block.  Its step is the
+chunked route's block step with the blocks on other ranks
+(``parallel/collectives.py``): the template continued along the ``sp``
+ranks in the oracle's order, the four maps of its block
+(``parallel/chunked.block_maps``: the kernel route or the plain one, from
+the same resolver as every route — the JAX sharded route turns Pallas off
+only because GSPMD cannot partition a ``pallas_call``, and a rank's block
+is a plain contiguous cube), the maps gathered along subints, then the
+scalers, the zap and the cycle test on the whole maps on every rank of the
+slice, which therefore stop together.  Each ``dp`` slice loops on its own;
+the results meet once, at the end.
+
 The template is dense every iteration: ``batched_fused_clean`` in the JAX
 package passes no ``incremental`` (a vmapped ``lax.cond`` would run both
 branches), and neither does the port.
@@ -29,7 +44,8 @@ mask-transparent — padded profiles would still enter the mask-blind FFT
 diagnostic's plain medians and change real archives' masks — so a batch is
 never padded.  ``sharded_clean(want_history=True)`` also fetches the
 per-archive iteration counts and the populated prefix of the mask
-history: the serving daemon's convergence forensics.
+history: the serving daemon's convergence forensics.  On a mesh over ranks
+it returns no history, as the JAX package does on a process-spanning mesh.
 """
 
 from __future__ import annotations
@@ -45,7 +61,11 @@ from iterative_cleaner_tpu_torch.backends.torch_backend import (
     step_from_template,
 )
 from iterative_cleaner_tpu_torch.config import CleanConfig
+from iterative_cleaner_tpu_torch.ops.stats import scale_and_combine
 from iterative_cleaner_tpu_torch.ops.template import build_templates
+from iterative_cleaner_tpu_torch.parallel import collectives
+from iterative_cleaner_tpu_torch.parallel.chunked import block_maps
+from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh, subint_bounds
 
 
 def batched_clean_step(Db, w0b, validb, w_prevb, chanthresh, subintthresh, *,
@@ -76,6 +96,17 @@ def batched_fused_clean(Db, w0b, validb, chanthresh, subintthresh, *,
     ``(a, max_iter + 1, nsub, nchan)`` with the pre-loop weights in row 0
     and rows ``0..x[j]`` of archive ``j`` populated.
     """
+    def step(w_prev):
+        return batched_clean_step(Db, w0b, validb, w_prev, chanthresh, subintthresh,
+                                  pulse_region=pulse_region, use_kernel=use_kernel)[:2]
+
+    return _converge(step, w0b, max_iter)
+
+
+def _converge(step, w0b, max_iter):
+    """The vmapped ``lax.while_loop`` written out over ``step(w_prev) ->
+    (test, new_w)`` on ``(a, nsub, nchan)`` maps: :func:`batched_fused_clean`'s
+    loop and return value."""
     narch, nsub, nchan = w0b.shape
     dev = w0b.device
     history = torch.zeros((narch, max_iter + 1, nsub, nchan), dtype=w0b.dtype, device=dev)
@@ -87,12 +118,10 @@ def batched_fused_clean(Db, w0b, validb, chanthresh, subintthresh, *,
     done = torch.zeros(narch, dtype=torch.bool, device=dev)
     xs = torch.zeros(narch, dtype=torch.int64, device=dev)
     active = torch.ones(narch, dtype=torch.bool, device=dev)
-    kw = dict(pulse_region=pulse_region, use_kernel=use_kernel)
     x = 0
     while x < max_iter:
         x += 1
-        t_new, new_w, _ = batched_clean_step(
-            Db, w0b, validb, w_prev, chanthresh, subintthresh, **kw)
+        t_new, new_w = step(w_prev)
         # Rows 0..x-1 are populated for every archive still active.
         hit = ((rows < x)[None] & (new_w[:, None] == history).flatten(2).all(dim=2)).any(dim=1)
         live = active[:, None, None]
@@ -110,37 +139,75 @@ def batched_fused_clean(Db, w0b, validb, chanthresh, subintthresh, *,
     return test, w_prev, loops, done, xs, None, history
 
 
+def rank_clean_step(Dblk, w0b, validb, w_prev, chanthresh, subintthresh, mesh, bounds, *,
+                    pulse_region, use_kernel=False):
+    """One iteration on a rank of a mesh over ranks: its block ``Dblk (a,
+    rows, nchan, nbin)`` (subints ``bounds[k]`` of its ``sp`` index ``k``)
+    and its ``dp`` slice's whole ``(a, nsub, nchan)`` maps.  Every rank of
+    the slice returns the same (test, new_w)."""
+    lo, hi = bounds[mesh.coords[1]]
+    template = collectives.continue_template(Dblk, w_prev[:, lo:hi].contiguous(), mesh)
+    maps = block_maps(Dblk, template, w0b[:, lo:hi].contiguous(),
+                      validb[:, lo:hi].contiguous(), pulse_region, use_kernel)
+    d_std, d_mean, d_ptp, d_fft = collectives.all_gather_maps(maps, mesh, bounds)
+    test = scale_and_combine(d_std, d_mean, d_ptp, d_fft, validb, chanthresh, subintthresh)
+    # Zap where test >= 1; NaN never flags.
+    new_w = torch.where(test >= 1.0, torch.zeros((), dtype=w0b.dtype, device=w0b.device), w0b)
+    return test, new_w
+
+
 def shard_batch(Db, w0b, mesh):
-    """Upload a same-shape batch to the mesh's device.  ``Db`` and ``w0b``
-    are stacked host arrays or sequences of per-archive arrays: each archive
-    is copied into its slice of one preallocated device tensor, so the
-    bucket is never stacked a second time on the host.  There is no mesh
-    layout: the mesh has one device."""
-    dev = mesh.device
+    """Upload a same-shape batch to this process's device.  ``Db`` and
+    ``w0b`` are stacked host arrays or sequences of per-archive arrays: each
+    archive is copied into its slice of one preallocated device tensor, so
+    the bucket is never stacked a second time on the host.
+
+    On a one-device mesh, the whole batch.  On a mesh over ranks, only this
+    rank's part: the archives ``dp_index::dp``, the subints of its ``sp``
+    block of each cube (only those are read, so a memory-mapped cube is
+    read in part), and those archives' whole weight maps (the scalers need
+    every subint's); a rank outside the mesh uploads nothing and gets
+    ``(None, None)``."""
     cubes, weights = list(Db), list(w0b)
     if len(cubes) != len(weights):
         raise ValueError(f"{len(cubes)} cubes but {len(weights)} weight maps")
     if not cubes:
         raise ValueError("an empty batch")
     shape = tuple(np.shape(cubes[0]))
-    out_D = torch.empty((len(cubes), *shape), dtype=torch.float32, device=dev)
-    out_w = torch.empty((len(cubes), *shape[:2]), dtype=torch.float32, device=dev)
     for j, (D, w) in enumerate(zip(cubes, weights)):
         if tuple(np.shape(D)) != shape or tuple(np.shape(w)) != shape[:2]:
             raise ValueError(f"archive {j} has shape {np.shape(D)} / {np.shape(w)}; the "
                              f"batch is {shape}: bucket by exact shape, never pad")
+    take, (lo, hi) = range(len(cubes)), (0, shape[0])
+    if mesh.spans_ranks:
+        if mesh.shape["sp"] > shape[0]:
+            raise ValueError(f"sp={mesh.shape['sp']} ranks for {shape[0]} subints: a rank "
+                             "would hold none")
+        if mesh.coords is None:
+            return None, None
+        dp_index, sp_index = mesh.coords
+        take = range(dp_index, len(cubes), mesh.shape["dp"])
+        lo, hi = subint_bounds(shape[0], mesh.shape["sp"])[sp_index]
+    dev = mesh.device
+    out_D = torch.empty((len(take), hi - lo, *shape[1:]), dtype=torch.float32, device=dev)
+    out_w = torch.empty((len(take), *shape[:2]), dtype=torch.float32, device=dev)
+    for j, src in enumerate(take):
         with warnings.catch_warnings():
             # A read-only host array is only read here (torch warns that
-            # writing through the wrapping tensor would be undefined).
-            warnings.simplefilter("ignore", UserWarning)
-            out_D[j].copy_(torch.from_numpy(np.ascontiguousarray(D, np.float32)))
-            out_w[j].copy_(torch.from_numpy(np.ascontiguousarray(w, np.float32)))
+            # writing through the wrapping tensor would be undefined).  Only
+            # that warning: the card's sync warnings must reach the route
+            # contracts.
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable",
+                                    category=UserWarning)
+            out_D[j].copy_(torch.from_numpy(np.ascontiguousarray(cubes[src][lo:hi], np.float32)))
+            out_w[j].copy_(torch.from_numpy(np.ascontiguousarray(weights[src], np.float32)))
     return out_D, out_w
 
 
 def sharded_clean_single(D: np.ndarray, w0: np.ndarray, cfg: CleanConfig, mesh=None):
-    """One archive through the batched route.  Returns (test, weights,
-    loops, converged)."""
+    """One archive through the batched route (on a mesh over ranks: its
+    subints over the ``sp`` ranks).  Returns (test, weights, loops,
+    converged)."""
     test, w, loops, done = sharded_clean([D], [w0], cfg, mesh)
     return test[0], w[0], int(loops[0]), bool(done[0])
 
@@ -149,21 +216,29 @@ def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None, want_history: bool = Fal
     """Clean a same-shape batch of preprocessed cubes in one dispatch.
 
     ``Db`` (a, nsub, nchan, nbin) and ``w0b`` (a, nsub, nchan): stacked host
-    arrays or sequences of per-archive arrays.  ``mesh`` defaults to the one
-    CUDA device (``make_mesh()``; raises without a card).  The route is the
-    kernel's wherever ``resolve_use_kernel`` puts a clean of this shape on
-    the device.  Returns host arrays: (test (a,s,c), weights (a,s,c), loops
-    (a,), converged (a,)), fetched together once at the end — plus, with
-    ``want_history`` (the serving daemon's convergence forensics), the
-    per-archive iteration counts (a,) and the mask histories
-    (a, max(x) + 1, s, c), rows 0..x[j] of archive j populated (row 0 =
-    w0).  Only the populated prefix is fetched, and only on request: it is
-    extra host traffic the default path does not pay.
+    arrays or sequences of per-archive arrays.  ``mesh`` defaults to
+    ``make_mesh()``: the ranks of the default process group when one is
+    initialized, else the one CUDA device (raises without a card).  The
+    route is the kernel's wherever ``resolve_use_kernel`` puts a clean of
+    this shape on the device.  Returns host arrays: (test (a,s,c), weights
+    (a,s,c), loops (a,), converged (a,)), fetched together once at the end
+    — plus, with ``want_history`` (the serving daemon's convergence
+    forensics), the per-archive iteration counts (a,) and the mask
+    histories (a, max(x) + 1, s, c), rows 0..x[j] of archive j populated
+    (row 0 = w0).  Only the populated prefix is fetched, and only on
+    request: it is extra host traffic the default path does not pay.
+
+    On a mesh over ranks every rank of the mesh's group — those left out
+    of the mesh too — calls this with the same batch and gets the whole
+    result; ``want_history`` then gives ``None`` for both history slots:
+    the fetch is asked for by per-process telemetry settings, and a
+    collective that some ranks call and others do not hangs them all.
     """
     if mesh is None:
-        from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
-
         mesh = make_mesh()
+    if mesh.spans_ranks:
+        out = _rank_clean(Db, w0b, cfg, mesh)
+        return (*out, None, None) if want_history else out
     dev = device_for(mesh.device)
     Dt, w0t = shard_batch(Db, w0b, mesh)
     narch, nsub, nchan, nbin = Dt.shape
@@ -190,3 +265,40 @@ def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None, want_history: bool = Fal
     x = packed[2 * n + 2 * narch:].astype(np.int64)
     hist = _hist[:, : int(x.max()) + 1].cpu().numpy()
     return (*out, x, hist)
+
+
+def _rank_clean(Db, w0b, cfg: CleanConfig, mesh):
+    """:func:`sharded_clean` on a mesh over ranks: this rank's slice
+    through :func:`rank_clean_step` until its ``dp`` slice has stopped,
+    then every slice's results to every rank in one gather."""
+    Dt, w0t = shard_batch(Db, w0b, mesh)
+    narch = len(Db)
+    nsub, nchan, nbin = (int(d) for d in np.shape(Db[0]))
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    n = nsub * nchan
+    # Per archive: its scores, its weights, loops and converged.
+    rows = torch.zeros((-(-narch // dp), 2 * n + 2), dtype=torch.float32,
+                       device=device_for(mesh.device))
+    if Dt is not None and Dt.shape[0] > 0:
+        kw = dict(pulse_region=tuple(cfg.pulse_region),
+                  use_kernel=kernel_for(cfg.replace(x64=False), nbin, Dt.device))
+        thresholds = (float(cfg.chanthresh), float(cfg.subintthresh))
+        valid = w0t != 0
+        bounds = subint_bounds(nsub, sp)
+
+        def step(w_prev):
+            return rank_clean_step(Dt, w0t, valid, w_prev, *thresholds, mesh, bounds, **kw)
+
+        test, w_final, loops, done, _x, _r, _hist = _converge(step, w0t, int(cfg.max_iter))
+        a = test.shape[0]
+        rows[:a] = torch.cat((test.reshape(a, n), w_final.reshape(a, n),
+                              loops[:, None].to(rows.dtype), done[:, None].to(rows.dtype)),
+                             dim=1)
+    got = collectives.gather_results(rows, mesh)     # (ranks of the group, *rows.shape)
+    out = np.empty((narch, 2 * n + 2), dtype=np.float32)
+    for i in range(dp):
+        # The slice's first rank is the group's rank i * sp.
+        out[i::dp] = got[i * sp, :len(range(i, narch, dp))]
+    return (out[:, :n].reshape(narch, nsub, nchan),
+            out[:, n:2 * n].reshape(narch, nsub, nchan),
+            out[:, 2 * n].astype(np.int64), out[:, 2 * n + 1].astype(bool))

@@ -659,7 +659,8 @@ class TestRouteContracts:
         assert {(r.route, r.label) for r in runs} == {
             (route, label) for route, labels in contracts.ROUTE_HOST_READS.items()
             for label in labels}
-        assert set(contracts.ROUTE_HOST_READS) == {"stepwise", "fused", "chunked", "batch"}
+        assert set(contracts.ROUTE_HOST_READS) == {"stepwise", "fused", "chunked", "batch",
+                                                   "ranks"}
         assert {r.kernel for r in runs} == {False, True}
 
     def test_every_ledger_line_names_a_unit_and_a_reason(self):
@@ -691,6 +692,20 @@ class TestRouteContracts:
         findings = [f for r in runs for f in contracts.check_run(r)]
         assert findings and all(f.snippet.endswith(":reads") for f in findings)
         assert "more" not in findings[0].message and "does not count" in findings[0].message
+
+    def test_seeded_item_inside_the_ranks_route_is_caught(self, monkeypatch):
+        # The rank route on a one-rank gloo group: its scalers are
+        # parallel/sharded's, not the backend's.
+        from iterative_cleaner_tpu_torch.parallel import sharded
+
+        orig = sharded.scale_and_combine
+        monkeypatch.setattr(sharded, "scale_and_combine",
+                            lambda *a, **k: (lambda t: (t.sum().item(), t)[1])(orig(*a, **k)))
+        runs, failures = contracts.run_routes("cpu", routes={"ranks"})
+        assert failures == [] and len(runs) == 2
+        findings = [f for r in runs for f in contracts.check_run(r)]
+        assert findings and {f.snippet.rsplit(":", 1)[1] for f in findings} == {"reads"}
+        assert not torch.distributed.is_initialized()
 
     def test_seeded_double_inside_a_route_is_caught(self, monkeypatch):
         _seed(monkeypatch, lambda t: t.double().float())
