@@ -211,12 +211,30 @@ exits non-zero:
    copies as the collectives' order predicts; per run the backend, ranks,
    wall, the template chain's time and the bytes gathered and staged per
    iteration;
-19. fuzz — ``tools_torch/fuzz_sweep.py`` on cuda, 16 float32 seeds and 8
+19. local mesh — the mesh over one process's devices
+   (``parallel/mesh.make_mesh(devices=...)``), on this one card as logical
+   devices: ``autoshard.default_devices`` replaced by ``[cuda:0, cuda:0]``
+   for the phase's reroutes and ``make_mesh(devices=[cuda:0] * 4)`` for its
+   batch (no environment variable or flag).  ``make_mesh()`` with no
+   devices gives the one card, so every other phase's route is unchanged;
+   (a) phase 4's cube through ``clean_cube`` with its defaults on a 2 GB
+   ``ICT_HBM_BYTES``: the reroute's announcement, ``sp=2``, the oracle's
+   mask, loops and converged, scores bit for bit the batch phase's
+   one-card batched route, the same clean's syncs against the route
+   contract (``ROUTE_HOST_READS['local']``); (b) the batch phase's seeds 42
+   and 101 (the service phase's ``.ictb`` files) through
+   ``clean_directory_batch`` on ``dp=2 x sp=2``: the batch phase's masks,
+   loops, converged and scores bit for bit; (c) the same cube with
+   ``--x64`` and with a residual: each declines to chunked, the oracle's
+   mask.  Each clean's wall, launches (one per device block and
+   iteration), bytes handed between devices per iteration and peak on the
+   card (the whole cube: the logical devices share it);
+20. fuzz — ``tools_torch/fuzz_sweep.py`` on cuda, 16 float32 seeds and 8
    ``--x64`` seeds from 1000 in two processes side by side: rc 0, every
    mode identical to the oracle, the per-mode drift and sparse-update
    counts printed; ``tools_torch/replay_repro.py`` on cuda on a bundle with
    one flipped served cell: cleared, rc 0;
-20. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
+21. north star — a seeded, preprocessed 1024 x 4096 x 1024 cube
    (BASELINE.json config #5) made on the card (``nsub`` cut, and the cut
    printed, where the host cannot hold ~2.5 cubes); the template over the
    whole cube in one launch, timed beside cuBLAS's matrix-vector product,
@@ -226,9 +244,9 @@ exits non-zero:
    start, across element 2^31 and at its end; then, from host memory, the
    automatic route on this card and on a 32 GB budget (``ICT_HBM_BYTES``,
    which routes it chunked), each with its peak device memory held against
-   the estimate or the budget, wall-clock and per-iteration times; masks
-   identical;
-21. one JSON line of the kernels (launches per path; the template kernel's
+   the estimate or the budget, wall-clock and per-iteration times (no
+   reroute over devices on this one-card host); masks identical;
+22. one JSON line of the kernels (launches per path; the template kernel's
    per phase, each phase's count above 0; its float64 instantiation its own
    entry), then ``{"ok": true, "device": ...}`` last.
 
@@ -4225,6 +4243,209 @@ def phase_ranks(lofar) -> tuple[dict, dict]:
     return fit, tmpl
 
 
+#: The local mesh phase's budget on the one card: ``ICT_HBM_BYTES`` that
+#: puts LOFAR's working set (2.5 GB on the kernel route) beyond one device
+#: and chunks it in 3 blocks where the reroute declines.
+LOCAL_MESH_BUDGET = 2 * 10**9
+LOCAL_MESH_PHASE_S = 90
+
+
+@contextlib.contextmanager
+def _default_devices(devices):
+    """``parallel/autoshard.default_devices`` giving ``devices`` for the
+    ``with`` block: logical devices for clean_cube's reroute."""
+    from iterative_cleaner_tpu_torch.parallel import autoshard
+
+    orig = autoshard.default_devices
+    autoshard.default_devices = lambda device="cuda": list(devices)
+    try:
+        yield
+    finally:
+        autoshard.default_devices = orig
+
+
+def _local_run(label, fn, iterations_of, n_blocks):
+    """Run ``fn()`` (a clean on an in-process mesh of logical devices on
+    cuda:0) with the launch counts, the traffic and the peak reset before
+    it: returns (its value, the launches, its line's numbers).  Each
+    kernel launches once per device block and iteration."""
+    import torch
+
+    from iterative_cleaner_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
+    torch.cuda.reset_peak_memory_stats()  # ict: backend-init-ok(phase 1 made CUDA live)
+    _reset_counts()
+    collectives.traffic.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()  # ict: backend-init-ok(phase 1 made CUDA live)
+    fit, tmpl, _ = _counts()
+    iters = iterations_of(out)
+    t = collectives.traffic
+    check(fit == tmpl == n_blocks * iters,
+          f"{label}: launches {fit}, {tmpl}; {n_blocks} device blocks x {iters} iterations "
+          f"predict {n_blocks * iters} each")
+    check(t.peer_copies == 0 and t.staged_bytes == 0,
+          f"{label}: {t.peer_copies} peer copies, {t.staged_bytes} staged bytes on one card")
+    log(f"  {label}: clean wall {wall:.4f}s (the upload included), {iters} iterations, launches "
+        f"fused_fit_moments {fit}, ordered_template {tmpl} ({n_blocks} device blocks x "
+        f"{iters}); handed between devices {t.gathered_bytes} B in all, "
+        f"{t.gathered_bytes / iters / 1e6:.4f} MB per iteration (the setup's weights and the "
+        f"results' meeting included; 0 copies: the logical devices share cuda:0); peak "
+        f"{peak / 1e9:.3f} GB on the one card (every logical device's blocks together: the "
+        f"whole cube and its working set, not a device's share)")
+    return out, (fit, tmpl)
+
+
+def phase_local_mesh(lofar) -> tuple[dict, dict]:
+    """The mesh over one process's devices, on the one card with logical
+    devices: ``autoshard.default_devices`` replaced by ``[cuda:0, cuda:0]``
+    for the reroute and ``make_mesh(devices=[cuda:0] * 4)`` for the batch.
+    (a) phase 4's cube through ``clean_cube`` with its defaults on a 2 GB
+    ``ICT_HBM_BYTES``: the announcement, ``sp=2``, the oracle's mask,
+    loops and converged, the scores the one-card batched route's bit for
+    bit, and the same clean's syncs against the route contract; (b) the
+    batch phase's seeds 42 and 101 through ``clean_directory_batch`` on a
+    ``dp=2 x sp=2`` mesh: the batch phase's masks, loops and converged and
+    its scores bit for bit; (c) the same cube with ``--x64`` and with
+    ``want_residual``: each declines to chunked; (d) ``make_mesh()`` with
+    no devices: one device on this one-card host.  Returns each kernel's
+    launches by path."""
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch.analysis import contracts
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.parallel import autoshard, batch, sharded
+    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    D, w0, ora = lofar["D"], lofar["w0"], lofar["oracle"]
+    refs = lofar["ranks_refs"]
+    cfg = CleanConfig(backend="torch")
+    max_iter = int(cfg.max_iter)
+
+    # (d) the default mesh on this host: one device, so every earlier
+    # phase's route is unchanged.
+    default = make_mesh()
+    check(default.devices == (torch.device("cuda", 0),)
+          and default.shape == {"dp": 1, "sp": 1, "tp": 1}
+          and autoshard.default_devices("cuda") == [torch.device("cuda", 0)],
+          f"make_mesh() on a one-card host: {default}")
+    log(f"local mesh: make_mesh() with no devices= on this host: {len(default.devices)} device "
+        f"({default.devices[0]}), extents {default.shape}; the earlier phases' routes are "
+        f"unchanged.  Logical devices for this phase: autoshard.default_devices replaced by "
+        f"[cuda:0, cuda:0] for clean_cube's reroute, make_mesh(devices=[cuda:0] * 4) for the "
+        f"batch (no environment variable or flag); they share cuda:0's memory and stream, so "
+        f"this phase shows placement and order, not speed")
+    two = [torch.device("cuda", 0)] * 2
+    fit, tmpl = {}, {}
+
+    # (a) the reroute.
+    def reroute():
+        with _default_devices(two), _hbm_budget(LOCAL_MESH_BUDGET), \
+                _stderr_to(io.StringIO()) as buf:
+            return clean_cube(D, w0, cfg, device="cuda"), buf.getvalue()
+
+    def iterations(res):
+        return res.loops if res.converged else max_iter
+
+    (res, said), (fit["local_sp2"], tmpl["local_sp2"]) = _local_run(
+        "local_sp2 (clean_cube's reroute)", reroute, lambda o: iterations(o[0]), 2)
+    check("auto-sharding cube (256, 1024, 1024)" in said and "over 2 devices (sp=2" in said
+          and "chunked clean:" not in said, f"local_sp2: the reroute's announcement: {said!r}")
+    check(res.history == [] and res.iterations == [], "local_sp2: not the sharded route")
+    check(np.array_equal(res.weights, ora.weights)
+          and (res.loops, res.converged) == (ora.loops, ora.converged),
+          "local_sp2: mask/loops/converged differ from the oracle")
+    want_t, want_w, want_loops, want_done = refs[0]
+    check(_same_bits(torch.from_numpy(np.ascontiguousarray(res.test_results)),
+                     torch.from_numpy(want_t)),
+          "local_sp2: scores differ from the one-card batched route's")
+    drift = _drift(res.test_results, ora.test_results)
+    check(drift <= 5e-5, f"local_sp2: score drift {drift:.3e}")
+    log(f"  local_sp2: the oracle's mask, loops {res.loops} and converged; scores bit for bit "
+        f"the one-card batched route's (max |difference| 0); drift against the oracle "
+        f"{drift:.3e} (bound 5e-05)")
+
+    # The same clean's host traffic against the route contract.
+    mesh = make_mesh(devices=two, dp=1, sp=2)
+    trace = contracts.Trace("cuda:0")
+    with trace:
+        again = sharded.sharded_clean([D], [w0], cfg, mesh)
+    check(np.array_equal(again[1][0], res.weights), "local_sp2 traced: mask differs")
+    units = {"run": 1, "archive block": 2,
+             "continuing iteration": min(iterations(res), max_iter - 1)}
+    want = contracts.expected_counts(contracts.ROUTE_HOST_READS["local"]["sharded_clean"],
+                                     units)
+    check(len(trace.syncs) == len(trace.reads) + len(trace.uploads)
+          == want["read"] + want["upload"] and len(trace.reads) == want["read"]
+          and not trace.f64, f"local_sp2 against the ledger: syncs {trace.syncs}, reads "
+          f"{trace.reads}, uploads {trace.uploads}, f64 {trace.f64}, the ledger {want}")
+    log(f"  local_sp2 against the route contract: {len(trace.syncs)} syncs = {want['read']} "
+        f"reads + {want['upload']} uploads for {units} (ROUTE_HOST_READS['local'])")
+
+    # (b) the directory batch on dp=2 x sp=2.
+    root = os.path.dirname(lofar["path"])
+    paths = [os.path.join(root, "service", "lofar_seed42.ictb"), lofar["service_paths"][0]]
+    check(all(os.path.exists(p) for p in paths), f"local mesh: {paths} missing")
+    four = make_mesh(devices=[torch.device("cuda", 0)] * 4)
+    check(four.shape == {"dp": 2, "sp": 2, "tp": 1}, f"four logical devices: {four.shape}")
+
+    def run_batch():
+        return batch.clean_directory_batch(paths, cfg, mesh=four)
+
+    def batch_iterations(items):
+        return max(it.loops if it.converged else max_iter for it in items)
+
+    items, (fit["local_dp2_sp2"], tmpl["local_dp2_sp2"]) = _local_run(
+        "local_dp2_sp2 (clean_directory_batch, the .ictb reads and native preprocess "
+        "included)", run_batch, batch_iterations, 4)
+    for j, item in enumerate(items):
+        want_t, want_w, want_loops, want_done = refs[j]
+        check(item.error is None and np.array_equal(item.weights, want_w)
+              and (item.loops, item.converged) == (want_loops, want_done),
+              f"local_dp2_sp2 archive {j}: mask/loops/converged differ from the batch phase's")
+        check(_same_bits(torch.from_numpy(np.ascontiguousarray(item.test_results)),
+                         torch.from_numpy(want_t)),
+              f"local_dp2_sp2 archive {j}: scores differ from the one-card batched route's")
+    check(np.array_equal(items[0].weights, ora.weights), "local_dp2_sp2: archive 0 != oracle")
+    log(f"  local_dp2_sp2: seeds 42 and 101 ({[it.loops for it in items]} loops) the batch "
+        f"phase's masks, loops and converged, scores bit for bit; archive 0 the oracle's")
+
+    # (c) the declines: x64 and a residual go to chunked.
+    for label, kw in (("x64", dict(cfg=cfg.replace(x64=True))),
+                      ("residual", dict(cfg=cfg, want_residual=True))):
+        _reset_counts()
+        t1 = time.perf_counter()
+        with _default_devices(two), _hbm_budget(LOCAL_MESH_BUDGET), \
+                _stderr_to(io.StringIO()) as buf:
+            got = clean_cube(D, w0, kw["cfg"], want_residual=kw.get("want_residual", False),
+                             device="cuda")
+        wall = time.perf_counter() - t1
+        said = buf.getvalue()
+        f32_fit, f32_t, f64_t = _counts()
+        check("auto-sharding" not in said and "chunked clean:" in said,
+              f"local mesh {label}: did not decline to chunked: {said!r}")
+        check(np.array_equal(got.weights, ora.weights) and got.loops == ora.loops,
+              f"local mesh {label}: the chunked route's mask differs from the oracle")
+        check(label != "residual" or got.residual is not None, "no residual")
+        log(f"  {label}: declined to the chunked route ({said.strip().splitlines()[0][:140]}), "
+            f"the oracle's mask in {wall:.2f}s; launches fused_fit_moments {f32_fit}, "
+            f"ordered_template {f32_t} (float64 {f64_t})")
+    phase_s = time.perf_counter() - t0
+    log(f"local mesh: every run held; the phase {phase_s:.1f}s")
+    check(phase_s <= LOCAL_MESH_PHASE_S,
+          f"the local mesh phase took {phase_s:.1f}s, over {LOCAL_MESH_PHASE_S}s")
+    torch.cuda.empty_cache()
+    return fit, tmpl
+
+
 #: Seeds of the fuzz phase from 1000, float32 and --x64: each mode of
 #: tools_torch/fuzz_sweep.py on each seed, within ~60 s side by side.
 FUZZ_SEEDS, FUZZ_SEEDS_X64 = 16, 8
@@ -4482,6 +4703,8 @@ def phase_north_star(entry, tentry) -> dict:
                "0.115 s)" if name == "auto" else ""))
         check(("chunked clean:" in errbuf.getvalue()) == (block is not None),
               f"north star {name}: the route announcement does not match the route")
+        check("auto-sharding" not in errbuf.getvalue(),
+              f"north star {name}: rerouted over devices on a one-card host")
         check(launches[name] > 0, f"north star {name}: the kernel never launched")
         check(np.isfinite(res.test_results).any() and res.weights.shape == shape[:2],
               f"north star {name}: implausible result")
@@ -4568,6 +4791,9 @@ def main() -> int:
         fit_ranks, template_ranks = timed("ranks", phase_ranks, lofar)
         by_path.update(fit_ranks)
         template_by_path.update(template_ranks)
+        fit_local, template_local = timed("local mesh", phase_local_mesh, lofar)
+        by_path.update(fit_local)
+        template_by_path.update(template_local)
         fuzz = timed("fuzz", phase_fuzz)
         by_path["fuzz"] = fuzz["f32"]["fused_fit_moments"]
         template_by_path["fuzz"] = fuzz["f32"]["ordered_template"]

@@ -17,7 +17,7 @@ Layer map (module names mirror the JAX package's):
   backends            .backends.numpy_backend (oracle)  (executable spec)
                       .backends.torch_backend           (device, stepwise)
   parallel            .parallel.chunked, .autoshard     (cubes beyond the card)
-                      .parallel.batch, .sharded, .mesh  (directory batch, one card)
+                      .parallel.batch, .sharded, .mesh  (directory batch, meshes)
   ops                 .ops.template, .masked, .stats    (torch ops; the template
                                                          kernel csrc/ordered_template.cu)
                       .ops.fused_kernels + csrc/*.cu    (hand-written CUDA)

@@ -90,6 +90,7 @@ UNITS = {
     "dense pass": "each streamed template pass",
     "sparse update": "each template advanced by the sparse update",
     "archive": "each archive a rank holds",
+    "archive block": "each archive's subint block on a device of an in-process mesh",
     "staged read": "each collective operand parallel/collectives.py copied to the host",
     "staged upload": "each collective result parallel/collectives.py copied to the card",
 }
@@ -170,6 +171,21 @@ ROUTE_HOST_READS: dict[str, dict[str, tuple[HostReads, ...]]] = {
             HostReads("read", 1, "continuing iteration",
                       "active.any(): whether an archive is still iterating "
                       "(the last allowed iteration does not ask)"),),
+    },
+    "local": {
+        "sharded_clean": (
+            HostReads("upload", 2, "archive block",
+                      "the block's subints of the cube and its rows of the "
+                      "original weights, from the host to its device "
+                      "(shard_batch; the slice's first device assembles the "
+                      "whole weights from the blocks, device to device)"),
+            HostReads("read", 1, "continuing iteration",
+                      "active.any() over every dp slice's flags, gathered on "
+                      "the mesh's first device (the last allowed iteration "
+                      "does not ask)"),
+            HostReads("read", 1, "run",
+                      "every slice's scores, weights, loops, converged and "
+                      "iterations, met on the first device, in one fetch"),),
     },
     "ranks": {
         "sharded_clean": (
@@ -499,6 +515,16 @@ def _entry_points(D, w0, Db, w0b, device, block):
         n = int(out[4].max())
         return {"run": 1, "continuing iteration": min(n, max_iter - 1)}
 
+    def local(trace, kernel):
+        from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+        from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean
+
+        mesh = make_mesh(devices=[device, device], dp=1, sp=2)
+        with trace:
+            out = sharded_clean([D], [w0], cfg.replace(kernel=kernel), mesh)
+        n = int(out[2][0]) if out[3][0] else max_iter
+        return {"run": 1, "archive block": 2, "continuing iteration": min(n, max_iter - 1)}
+
     def ranks(trace, kernel):
         from iterative_cleaner_tpu_torch.parallel import collectives
         from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean
@@ -532,6 +558,7 @@ def _entry_points(D, w0, Db, w0b, device, block):
         ("chunked", "ChunkedTorchCleaner.step", loop(
             lambda c: ChunkedTorchCleaner(D, w0, c, block=block, device=device), True)),
         ("batch", "batched_fused_clean", batch),
+        ("local", "sharded_clean", local),
         ("ranks", "sharded_clean", ranks),
     ]
 

@@ -12,10 +12,11 @@ with the port's differences:
   is summed by ``ops/template.build_template`` in the oracle's order on
   every route (on the card its CUDA kernel ``csrc/ordered_template.cu``);
 - ``trace_dir`` names a ``torch.profiler`` capture (``--trace``);
-- ``sharded_batch`` (the directory batch on one card) requires the torch
-  backend and may take the kernel: with no mesh to split the batch over,
-  the JAX package's reason to keep its Pallas kernel off the batch does not
-  apply;
+- ``sharded_batch`` (the directory batch over this process's cards)
+  requires the torch backend and may take the kernel: each device's block
+  is a plain contiguous cube, so the JAX package's reason to keep its
+  Pallas kernel off the batch (GSPMD cannot partition a ``pallas_call``)
+  does not apply;
 - ``x64`` runs the routes in float64 (torch has float64 natively: no
   process-wide switch like ``JAX_ENABLE_X64``); as in the JAX package it
   cannot take the forced kernel (``kernel=True``), and auto resolves the

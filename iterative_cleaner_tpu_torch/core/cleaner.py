@@ -3,8 +3,9 @@
 Copies of ``IterationInfo``, ``CleanResult``, ``LoopState`` and
 ``find_bad_parts`` (``iterative_cleaner_tpu/core/cleaner.py:31-196``,
 ``:458-477``) and a port of ``clean_cube`` (``:199-455``) with its routing:
-in memory (stepwise or fused) or, for a cube beyond the card's memory, the
-chunked streaming backend.  The reference's iteration dynamics:
+in memory (stepwise or fused) or, for a cube beyond one device's memory,
+sharded over this process's devices or the chunked streaming backend.  The
+reference's iteration dynamics:
 
 - weights feed back only through the template: each step's stats use the
   frozen original weights, while ``w_prev`` shapes the template;
@@ -232,10 +233,14 @@ def clean_cube(
     Routing (torch backend): an explicit ``cfg.chunk_block`` streams the
     cube through the chunked backend in blocks of that many subints;
     otherwise, with ``cfg.auto_shard``, a cube whose estimated working set
-    exceeds the card's memory streams with the block size
-    ``parallel/autoshard.chunk_block_subints`` gives.  The decision is made
-    here, before the run, and announced on stderr; an out-of-memory error on
-    the in-memory route is never retried elsewhere.  With ``cfg.fused`` the
+    exceeds one device's memory is cleaned over this process's devices
+    when it has more than one (``parallel/autoshard.maybe_clean_sharded``:
+    its subints over ``sp``; no per-loop ``iterations`` or ``history``),
+    and where that declines (one card, ``want_residual``, ``x64``) streams
+    with the block size ``parallel/autoshard.chunk_block_subints`` gives.
+    The decision is made here, before the run, and announced on stderr; an
+    out-of-memory error on the in-memory route is never retried elsewhere.
+    With ``cfg.fused`` the
     in-memory loop runs on the device and the per-loop ``iterations`` (and
     ``progress`` calls) are derived afterwards from its mask history, with
     ``duration_s`` 0.
@@ -248,8 +253,17 @@ def clean_cube(
             chunk_block, chunk_why = int(cfg.chunk_block), "--chunk_block override"
         elif cfg.auto_shard:
             from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+            from iterative_cleaner_tpu_torch.parallel import autoshard
             from iterative_cleaner_tpu_torch.parallel.autoshard import chunk_block_subints
 
+            with compile_scope(shape_bucket_label(D.shape)):
+                sharded = autoshard.maybe_clean_sharded(D, w0, cfg, want_residual,
+                                                        resolve_device(device))
+            if sharded is not None:
+                if events.active():
+                    events.emit("clean_route", route="sharded", shape=list(D.shape))
+                obs_memory.observe_route("sharded")
+                return sharded
             chunk_block = chunk_block_subints(D.shape, cfg, resolve_device(device),
                                               want_residual)
             chunk_why = f"cube {tuple(D.shape)} exceeds device memory"

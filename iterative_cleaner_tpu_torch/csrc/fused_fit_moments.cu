@@ -437,12 +437,13 @@ int launch(const float* D, const float* tmpl, const float* bin_scale, const floa
            const unsigned char* valid, float* centred, float* mean, float* std_, float* ptp,
            long long nprof, int nbin, int narch, int stages, int rows, long long blocks,
            unsigned long long* counters, cudaStream_t stream) {
-  // Once per process (the warm-up's launch): above 48 KB a block's dynamic
-  // shared memory must be allowed explicitly.
-  static const cudaError_t allowed = cudaFuncSetAttribute(
-      fused_fit_moments_kernel<kAligned>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmemBytes);
-  if (allowed != cudaSuccess) return (int)allowed;
+  // Once per device (the warm-up's launch on the first): above 48 KB a
+  // block's dynamic shared memory must be allowed explicitly.
+  static std::atomic<bool> allowed[kMaxAllowDevices];
+  const cudaError_t err = allow_dynamic_smem(
+      reinterpret_cast<const void*>(fused_fit_moments_kernel<kAligned>), kMaxSmemBytes,
+      allowed);
+  if (err != cudaSuccess) return (int)err;
   const long long tiles_per_arch = (nprof + rows - 1) / rows;
   const long long ntiles = tiles_per_arch * narch;
   if (blocks > ntiles) blocks = ntiles;

@@ -364,12 +364,13 @@ ordered_template_kernel(const T* __restrict__ D, const T* __restrict__ w,
 template <typename T, bool kAligned>
 int launch(const T* D, const T* w, const T* init, T* out, long long nprof, int nbin, int narch,
            long long d_stride, long long w_stride, cudaStream_t stream) {
-  // Once per process and instantiation (the warm-up's launch): above 48 KB
-  // a block's dynamic shared memory must be allowed explicitly.
-  static const cudaError_t allowed = cudaFuncSetAttribute(
-      ordered_template_kernel<T, kAligned>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Ring<T>::kSmemBytes);
-  if (allowed != cudaSuccess) return (int)allowed;
+  // Once per device and instantiation (the warm-up's launch on the first):
+  // above 48 KB a block's dynamic shared memory must be allowed explicitly.
+  static std::atomic<bool> allowed[kMaxAllowDevices];
+  const cudaError_t err = allow_dynamic_smem(
+      reinterpret_cast<const void*>(ordered_template_kernel<T, kAligned>), Ring<T>::kSmemBytes,
+      allowed);
+  if (err != cudaSuccess) return (int)err;
   const int ngroups = (nbin + kBins - 1) / kBins;
   const long long blocks = (long long)ngroups * narch;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;

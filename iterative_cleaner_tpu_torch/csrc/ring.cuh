@@ -4,15 +4,43 @@
 // that fill a stage (4-, 8- and 16-byte cp.async, the TMA's 1-D bulk copy).
 // A wait that has not completed after kHangNs traps, so a fault in a ring's
 // handshake is a launch failure that the wrapper raises, never a hang.
+// On the host, allow_dynamic_smem: a kernel's shared memory above 48 KB,
+// allowed once per device.
 // ops/cuda_build.py keys every build on this header as well as its source.
 
 #pragma once
 
+#include <cuda_runtime.h>
+
+#include <atomic>
 #include <cstdint>
 
 namespace {
 
 constexpr unsigned long long kHangNs = 20000000000ull;  // 20 s: no stage waits that long
+
+// Devices whose allowance a kernel remembers; on a device past these it is
+// set again at each launch (setting it is idempotent).
+constexpr int kMaxAllowDevices = 64;
+
+// Allow `kernel` `bytes` of dynamic shared memory on the current device (the
+// wrappers make the operands' device current), once per device: the
+// attribute belongs to the function in that device's context, so a process
+// that launches on a second card must set it there too.  `allowed` is the
+// caller's flags, one array per kernel instantiation.  Two threads that race
+// here both set the attribute, which is harmless; a failure is not
+// remembered.
+inline cudaError_t allow_dynamic_smem(const void* kernel, int bytes,
+                                      std::atomic<bool> (&allowed)[kMaxAllowDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool tracked = dev >= 0 && dev < kMaxAllowDevices;
+  if (tracked && allowed[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && tracked) allowed[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

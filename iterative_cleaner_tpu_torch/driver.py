@@ -5,7 +5,8 @@ naming, the residual archive, the zap plot (``-z``), the mask dump, the
 append-only clean.log, the
 reference's console strings (docs/PARITY.md), per-archive failure isolation,
 a one-archive read-ahead for sequential batches, ``--resume``, the
-directory batch (``--sharded_batch``, ``--stream``, on one card) with its
+directory batch (``--sharded_batch``, ``--stream``, over this process's
+cards) with its
 automatic switch to the streaming dispatcher above a host-memory threshold,
 the online ``--follow`` tail (``run_follow``, ``:423-451``) and the
 threshold sweep (``run_sweep``, ``:483-526``), with the JAX package's
@@ -303,8 +304,10 @@ def _auto_stream(paths: list[str], cfg: CleanConfig) -> bool:
 def run_sharded_batch(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
                       all_paths: list[str] | None = None,
                       device="cuda") -> list[ArchiveReport]:
-    """Same-shape archives cleaned together on one card (one batched
-    dispatch per bucket, or per ``archives_per_dispatch`` archives of it).
+    """Same-shape archives cleaned together on ``parallel/multihost.
+    local_mesh(device)`` — every card of this process for ``cuda``, the one
+    card of ``cuda:N`` — in one batched dispatch per bucket, or per
+    ``dp`` x ``archives_per_dispatch`` archives of it, archives over ``dp``.
     No residual archives (the batch does not carry them) and no mask
     history.  With streaming, each archive's outputs are emitted (and its
     host arrays released) as its dispatch returns, so host residency stays
@@ -316,7 +319,7 @@ def run_sharded_batch(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
         clean_directory_batch,
         clean_directory_streaming,
     )
-    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+    from iterative_cleaner_tpu_torch.parallel.multihost import local_mesh
 
     if cfg.unload_res:
         print("warning: --unload_res is not supported with --sharded_batch; "
@@ -325,7 +328,8 @@ def run_sharded_batch(paths: list[str], cfg: CleanConfig, log_dir: str = ".",
         print("warning: --sharded_batch tracks no per-iteration mask history; "
               "--dump_masks will write the NPZ without the 'history' key",
               file=sys.stderr)
-    mesh = make_mesh(devices=[resolve_device(device)])
+    resolve_device(device)
+    mesh = local_mesh(device)
     invocation = all_paths if all_paths is not None else paths
     reports: dict[int, ArchiveReport] = {}
 

@@ -23,17 +23,23 @@ for one piece), but such a cube is far below any card's memory.  Under
 mask history (the FFT pieces are cut by bytes, so the cube factors hold),
 as ``iterative_cleaner_tpu/parallel/autoshard.py:142-180`` counts 8-byte
 elements.
-One oversized archive over the ranks of a process group:
-:func:`single_archive_mesh` (``:101-133`` of the JAX module) gives its
-subints to the ``sp`` ranks of a one-slice mesh, which
-``parallel/sharded.sharded_clean_single`` cleans.  The JAX package's
-automatic reroute over the cards of one process (``maybe_clean_sharded``)
-is not ported (ROADMAP.md queue A.2); on one card it declines there too.
+
+One oversized archive over several devices: :func:`single_archive_mesh`
+(``:101-131`` of the JAX module) gives its subints to the ``sp`` devices
+of a one-slice mesh — this process's devices (:func:`default_devices`),
+or the ranks of a process group — which
+``parallel/sharded.sharded_clean_single`` cleans; the devices its peel
+cannot use stay out, and none goes to ``tp``.  :func:`maybe_clean_sharded`
+(``:158-204``) is ``core/cleaner.clean_cube``'s automatic reroute: when
+:func:`should_shard` says the cube's working set exceeds one device's
+usable memory and the process has more than one device, the cube is
+cleaned over them before the chunked route is considered.  On one card it
+declines and the cube streams through the chunked route.
 
 The directory batch has no JAX counterpart here (the JAX package fits a
-bucket by spreading it over ``dp``): on one card a bucket is cut into
-dispatches of at most :func:`archives_per_dispatch` archives, each sized by
-:func:`batch_working_set_bytes` before it runs.  The threshold sweep
+bucket by spreading it over ``dp``): a bucket is cut into dispatches that
+give each ``dp`` slice at most :func:`archives_per_dispatch` archives, each
+sized by :func:`batch_working_set_bytes` before it runs.  The threshold sweep
 (``models/sweep.py``) sizes its pairs the same way, one plain-route archive
 per pair (the cube counted once per pair, though the pairs share it).
 """
@@ -74,6 +80,24 @@ def device_memory_bytes(device=None) -> int | None:
     return obs_memory.device_memory_bytes(device)
 
 
+def default_devices(device="cuda") -> list[torch.device]:
+    """The devices a clean on ``device`` may spread over (the JAX module's
+    ``:37-56``): for ``cuda`` every card of this process
+    (``parallel/mesh.local_devices``), or this rank's card under a process
+    group (``parallel/mesh.rank_device``: a rank holds one card of a mesh);
+    for ``cuda:N`` that card alone; for ``cpu``, ``[cpu]``."""
+    import torch.distributed as dist
+
+    from iterative_cleaner_tpu_torch.parallel.mesh import local_devices, rank_device
+
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return [dev]
+    if dist.is_available() and dist.is_initialized():
+        return [rank_device()]
+    return local_devices()
+
+
 def _route(use_kernel: bool) -> str:
     return "kernel" if use_kernel else "plain"
 
@@ -110,6 +134,26 @@ def clean_working_set_bytes(shape: tuple[int, ...], cfg, use_kernel: bool) -> in
     fused loop keeps ``max_iter + 1`` mask rows on the device."""
     rows = int(cfg.max_iter) - FIT_MAX_ITER if cfg.fused else 0
     return working_set_bytes(shape, itemsize_of(cfg), use_kernel, rows)
+
+
+def should_shard(shape: tuple[int, ...], device="cuda", n_devices: int | None = None,
+                 nbytes: int | None = None) -> bool:
+    """True when more than one device is there to spread over (``n_devices``,
+    default ``len(default_devices(device))``) and a clean of ``shape``
+    will not fit one: its working set ``nbytes`` (default: the kernel
+    route's float32 :func:`working_set_bytes`) beyond the usable share of
+    the device's memory.  False where that memory is unknown (the CPU
+    without ``ICT_HBM_BYTES``), as in the JAX module (``:81-98``)."""
+    if n_devices is None:
+        n_devices = len(default_devices(device))
+    if n_devices < 2:
+        return False
+    hbm = device_memory_bytes(device)
+    if hbm is None:
+        return False
+    if nbytes is None:
+        nbytes = working_set_bytes(shape)
+    return nbytes > hbm * HBM_USABLE_FRACTION
 
 
 def block_subints(shape: tuple[int, ...], hbm: int, use_kernel: bool = True,
@@ -200,20 +244,70 @@ def subint_ranks(nsub: int, n_ranks: int) -> int:
     return sp
 
 
-def single_archive_mesh(shape: tuple[int, ...], n_ranks: int | None = None):
-    """A (dp=1, sp) mesh over the first ``sp`` ranks of the default process
-    group for one archive of ``shape``: ``sp`` = :func:`subint_ranks` of
-    ``n_ranks`` (default: the group's size); the other ranks stay out of
-    the mesh, do no device work and receive the result.  None where ``sp``
-    is 1: nothing to shard (the JAX package declines there too).  Every
-    rank of the group calls it: ``make_mesh`` makes process groups."""
+def single_archive_mesh(shape: tuple[int, ...], n_devices: int | None = None, devices=None):
+    """A (dp=1, sp) mesh for one archive of ``shape``, with ``sp`` =
+    :func:`subint_ranks` of ``n_devices``: over the first ``sp`` of
+    ``devices`` (this process's; default :func:`default_devices`), or,
+    with no ``devices`` and a default process group initialized, over its
+    first ``sp`` ranks (``n_devices`` defaults to the group's size; every
+    rank of the group calls it, since ``make_mesh`` makes process groups,
+    and the ranks left out do no device work and receive the result).
+    The devices or ranks the peel cannot use stay out of the mesh.  None
+    where ``sp`` is 1: nothing to shard (the JAX package declines there
+    too)."""
     import torch.distributed as dist
 
     from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
 
-    if n_ranks is None:
-        n_ranks = dist.get_world_size()
-    sp = subint_ranks(int(shape[0]), n_ranks)
+    over_ranks = devices is None and dist.is_available() and dist.is_initialized()
+    if not over_ranks and devices is None:
+        devices = default_devices()
+    if n_devices is None:
+        n_devices = dist.get_world_size() if over_ranks else len(devices)
+    sp = subint_ranks(int(shape[0]), n_devices)
     if sp == 1:
         return None
-    return make_mesh(n_devices=sp, dp=1, sp=sp, tp=1, group=dist.group.WORLD)
+    if over_ranks:
+        return make_mesh(n_devices=sp, dp=1, sp=sp, tp=1, group=dist.group.WORLD)
+    return make_mesh(n_devices=sp, dp=1, sp=sp, tp=1, devices=devices)
+
+
+def maybe_clean_sharded(D, w0, cfg, want_residual: bool, device="cuda"):
+    """The automatic reroute (the JAX module's ``:158-204``): a
+    ``CleanResult`` when the cube was cleaned over this process's devices
+    (:func:`default_devices` of ``device``), None when the caller should
+    run a one-device route — the chunked route where
+    :func:`chunk_block_subints` says the cube does not fit.
+
+    Declines, as the JAX package does, when the caller needs the residual
+    (the sharded loop does not materialise it), under ``x64`` (the
+    batched loop runs float32), and where the mesh would be one device (one
+    card, or no ``sp`` that divides the subints); the chunked route then
+    takes the cube.  The reroute is announced on stderr.  The result has
+    no per-loop ``iterations`` and no ``history``: the loop runs on the
+    devices, as the fused loop does."""
+    import sys
+
+    from iterative_cleaner_tpu_torch.core.cleaner import CleanResult
+    from iterative_cleaner_tpu_torch.ops.fused_kernels import resolve_use_kernel
+    from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean_single
+
+    if want_residual or cfg.x64:
+        return None
+    devices = default_devices(device)
+    use_kernel = resolve_use_kernel(cfg, int(D.shape[-1]), devices[0])
+    nbytes = clean_working_set_bytes(D.shape, cfg, use_kernel)
+    if not should_shard(D.shape, devices[0], len(devices), nbytes):
+        return None
+    mesh = single_archive_mesh(D.shape, devices=devices)
+    if mesh is None:
+        # No sp divides the subints: the chunked route announces the cube.
+        return None
+    kernel = "on" if use_kernel else "off"
+    print(f"auto-sharding cube {tuple(D.shape)}: ~{nbytes / 1e9:.1f} GB working set "
+          f"exceeds device memory; cleaning sharded over {len(mesh.devices)} devices "
+          f"(sp={mesh.shape['sp']}; the fit/moments kernel {kernel} as its resolver says, "
+          f"where the JAX package turns Pallas off; no per-loop progress; disable with "
+          f"auto_shard=False)", file=sys.stderr)
+    test, w_final, loops, done = sharded_clean_single(D, w0, cfg, mesh)
+    return CleanResult(weights=w_final, test_results=test, loops=loops, converged=done)

@@ -1,15 +1,18 @@
 """Directory batch: bucket archives by shape, clean each bucket in batched
-dispatches on one card, keep per-archive failure isolation.
+dispatches on the mesh, keep per-archive failure isolation.
 
 Port of ``iterative_cleaner_tpu/parallel/batch.py:33-261``: ``BatchItem``,
 ``_finish_bucket``, ``clean_directory_batch`` (load everything with a small
 thread pool, then one bucket at a time) and ``clean_directory_streaming``
 (a throttled loader pool; a bucket is dispatched as soon as enough
-same-shape archives have arrived).  Where the JAX package fits a bucket by
-spreading it over the mesh's ``dp`` axis, the port cuts a bucket into
-dispatches of at most ``parallel/autoshard.archives_per_dispatch`` archives
-— the most whose batched working set fits the card — and the streaming
-dispatcher's default bucket size is that count for the shape.  An archive
+same-shape archives have arrived).  The mesh defaults to this process's
+cards (``parallel/multihost.local_mesh``, as the JAX package's
+``make_mesh()``), with archives over ``dp``.  Where the JAX package fits a
+bucket by spreading it over the mesh's ``dp`` axis, the port cuts a bucket
+into dispatches of at most ``dp`` times
+``parallel/autoshard.archives_per_dispatch`` archives — the most whose
+batched working set fits each card — and the streaming dispatcher's
+default bucket size is that count for the shape.  An archive
 whose own working set does not fit is reported as its item's error, naming
 the sequential route that streams it through the card.  An out-of-memory
 error is never caught and retried smaller.  ``want_history`` derives each
@@ -67,12 +70,20 @@ def _require_torch_backend(cfg: CleanConfig) -> None:
             "use driver.run() without sharded_batch for the sequential numpy path")
 
 
+def _dispatch_size(shape, cfg, mesh) -> int | None:
+    """The most archives of ``shape`` one dispatch on ``mesh`` may take:
+    ``archives_per_dispatch`` on one of its devices for each ``dp``
+    slice (a slice's devices each hold a block of its archives)."""
+    k = archives_per_dispatch(shape, cfg, mesh.device)
+    return None if k is None else k * mesh.shape["dp"]
+
+
 def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None,
                    want_history=False) -> None:
     """Clean one same-shape bucket and write the results into its
     BatchItems.  ``cubes`` and ``w0s`` are lists the caller hands over: each
     dispatch's entries are released once it returns.  The bucket goes in
-    dispatches of at most ``archives_per_dispatch`` archives (all of them
+    dispatches of at most :func:`_dispatch_size` archives (all of them
     where the device reports no memory limit); an archive too large for one
     gets an error instead.  ``on_item(i, item)`` fires per
     finished archive — the streaming driver emits outputs there and
@@ -83,7 +94,7 @@ def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None,
     forensics records and termination reason (off by default — extra host
     traffic)."""
     shape = tuple(np.shape(cubes[0]))
-    k = archives_per_dispatch(shape, cfg, mesh.device)
+    k = _dispatch_size(shape, cfg, mesh)
     if k == 0:
         why = (f"archive shape {shape}: one archive's batched working set exceeds "
                "the device's usable memory; clean it without --sharded_batch (the "
@@ -161,8 +172,8 @@ def clean_directory_streaming(paths: list[str], cfg: CleanConfig, mesh=None,
     A loader pool decodes archives concurrently; the consumer dispatches a
     bucket as soon as its shape's cap of same-shape cubes has arrived while
     the loaders keep reading ahead.  The cap is ``bucket_cap`` when given,
-    else the shape's ``archives_per_dispatch`` (one full dispatch, standing
-    in for the JAX package's one data-parallel slice), or ``n_loaders``
+    else the shape's :func:`_dispatch_size` (one full dispatch, standing
+    in for the JAX package's ``dp`` extent), or ``n_loaders``
     where the device reports no memory limit.  Unlike
     :func:`clean_directory_batch` this never holds the whole directory on
     the host: decoded and decoding archives together stay below the
@@ -185,8 +196,7 @@ def clean_directory_streaming(paths: list[str], cfg: CleanConfig, mesh=None,
 
     def cap_for(shape) -> int:
         if shape not in caps:
-            k = (bucket_cap if bucket_cap is not None
-                 else archives_per_dispatch(shape, cfg, mesh.device))
+            k = bucket_cap if bucket_cap is not None else _dispatch_size(shape, cfg, mesh)
             caps[shape] = max(1, n_loaders if k is None else k)
         return caps[shape]
 

@@ -1,25 +1,37 @@
-"""What crosses ranks in the rank-sharded clean: the one module that runs
-``torch.distributed`` collectives.
+"""What crosses devices in the sharded clean: the one module that moves a
+tensor from one device of a mesh to another.
 
 No JAX counterpart: there GSPMD inserts the collectives from the input
-shardings (``iterative_cleaner_tpu/parallel/sharded.py:1-13``).  A rank of
-a mesh over ranks (``parallel/mesh.py``) holds a contiguous subint block of
-its ``dp`` slice's archives; each iteration every rank of the slice's
-``sp`` group calls, in this order:
+shardings (``iterative_cleaner_tpu/parallel/sharded.py:1-13``).  A device
+of a mesh (``parallel/mesh.py``) holds a contiguous subint block of its
+``dp`` slice's archives, and each iteration the slice's ``sp`` devices
+make two exchanges, chosen by ``mesh.spans_ranks``:
 
-- :func:`continue_template` — the template in the oracle's order: rank
-  ``k`` receives the running ``(a, nbin)`` sum from rank ``k-1``, continues
-  it over its block (``ops/template.build_template(..., init=)``, as the
-  chunked route continues block after block), sends it on, and the last
-  rank broadcasts the finished template to the group.  The hops are
-  serial, so the chain's floor is paid once across the ranks, as on one
-  card; an all-reduce would sum in another order and drift the scores;
-- :func:`all_gather_maps` — the four ``(a, rows, nchan)`` maps gathered
-  along subints, in rank order, to every rank of the group;
+- the template in the oracle's order: block ``k`` continues the running
+  ``(a, nbin)`` sum of block ``k-1`` over its subints
+  (``ops/template.build_template(..., init=)``, as the chunked route
+  continues block after block), and the finished template goes to every
+  block.  The hops are serial, so the chain's floor is paid once across
+  the devices, as on one card; an all-reduce would sum in another order
+  and drift the scores.  Over ranks :func:`continue_template` (send,
+  receive, broadcast); in one process :func:`chain_template`;
+- the four ``(a, rows, nchan)`` maps gathered along subints in ``sp``
+  order: over ranks :func:`all_gather_maps`, to every rank of the slice;
+  in one process :func:`gather_maps`, to the slice's first device, where
+  the scalers run, and :func:`scatter_rows` hands each block its rows of
+  the new weights.
 
-and at the end every rank of the mesh's group calls :func:`gather_results`,
-which hands each ``dp`` slice's results to every rank (the JAX package's
-``_to_host``).
+At the end, over ranks, every rank of the mesh's group calls
+:func:`gather_results`, which hands each ``dp`` slice's results to every
+rank (the JAX package's ``_to_host``); in one process the slices' results
+meet on the mesh's first device (:func:`hand`) for one fetch.
+
+In one process a hop is ``Tensor.to`` the other device (a peer copy
+between cards, ordered after both devices' streams, with no host
+synchronisation); between logical devices that share a card it hands the
+tensor over without a copy.  :data:`traffic` counts every hop's bytes in
+``gathered_bytes`` either way (what distinct cards would move) and the
+hops that copied in ``peer_copies``.  Nothing is staged through the host.
 
 Under ``gloo`` every collective takes host tensors: a device operand is
 copied to the host and the result back, here and nowhere else, and
@@ -46,13 +58,16 @@ from iterative_cleaner_tpu_torch.ops.template import build_template
 class Traffic:
     """This process's collective traffic since the last :meth:`reset`: the
     bytes its receives, broadcasts and gathers delivered to it, its own
-    part of a gather included (``gathered_bytes``), the copies staged
-    through the host under gloo (``staged_reads`` device to host,
+    part of a gather included, or in one process the bytes its hops
+    between devices delivered (``gathered_bytes``), the hops that copied
+    between distinct devices (``peer_copies``), the copies staged through
+    the host under gloo (``staged_reads`` device to host,
     ``staged_uploads`` host to device, ``staged_bytes`` both ways) and the
     host seconds spent in :func:`continue_template` (``chain_s``: the
     build, the waits on the ranks before and the hops)."""
 
     gathered_bytes: int = 0
+    peer_copies: int = 0
     staged_reads: int = 0
     staged_uploads: int = 0
     staged_bytes: int = 0
@@ -176,3 +191,43 @@ def gather_results(rows: torch.Tensor, mesh) -> np.ndarray:
     dist.all_gather([_wire(p) for p in parts], operand, group=mesh.group)
     traffic.gathered_bytes += sum(p.nbytes for p in parts)
     return np.stack(parts)
+
+
+def hand(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` handed to ``device``, another position of an in-process mesh:
+    its bytes counted; copied where ``device`` is not ``t``'s own (a
+    logical device on the same card takes ``t`` as it is)."""
+    traffic.gathered_bytes += t.nbytes
+    if t.device == device:
+        return t
+    traffic.peer_copies += 1
+    return t.to(device)
+
+
+def chain_template(blocks, weights) -> list[torch.Tensor]:
+    """The ``(a, nbin)`` templates of a ``dp`` slice of an in-process mesh
+    from its ``sp`` devices' blocks ``D_k (a, rows_k, nchan, nbin)`` under
+    weights ``w_k (a, rows_k, nchan)``, in ``sp`` order: block ``k``
+    continues block ``k-1``'s sum, handed to its device.  Returns the
+    finished templates on each block's device, bit for bit the one-card
+    build over all subints."""
+    T = None
+    for D, w in zip(blocks, weights):
+        T = build_template(D, w, init=None if T is None else hand(T, D.device))
+    last = len(blocks) - 1
+    return [T if k == last else hand(T, D.device) for k, D in enumerate(blocks)]
+
+
+def gather_maps(maps, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The four ``(a, rows_k, nchan)`` maps of each block of a ``dp``
+    slice (``maps[k]``, in ``sp`` order) concatenated along subints on
+    ``device``, the slice's first: four ``(a, nsub, nchan)`` maps."""
+    parts = [m if k == 0 else tuple(hand(x, device) for x in m) for k, m in enumerate(maps)]
+    return tuple(torch.cat(ms, dim=1) for ms in zip(*parts))
+
+
+def scatter_rows(w: torch.Tensor, bounds, devices) -> list[torch.Tensor]:
+    """Each block's rows ``[lo, hi)`` of the ``(a, nsub, nchan)`` map ``w``
+    (on the slice's first device), on that block's device."""
+    return [w[:, lo:hi].contiguous() if k == 0 else hand(w[:, lo:hi].contiguous(), dev)
+            for k, ((lo, hi), dev) in enumerate(zip(bounds, devices))]

@@ -1,29 +1,38 @@
-"""Device mesh for the cleaner's parallel axes: one device, or the ranks of
-a process group.
+"""Device mesh for the cleaner's parallel axes: the devices of this
+process, or the ranks of a process group.
 
 Port of ``iterative_cleaner_tpu/parallel/mesh.py:30-89``.  The JAX package
 maps its parallelism onto a ('dp', 'sp', 'tp') mesh: archives over ``dp``,
 subints over ``sp``, channels over ``tp``, with GSPMD inserting the
-collectives.  In PyTorch a device belongs to one process, so a mesh over
-several devices is a mesh over the ranks of a ``torch.distributed``
-process group, one device per rank:
+collectives.  The port has two kinds of mesh:
 
-- without a process group (or with ``devices`` given and no ``group``) the
-  mesh is one device, where the directory batch runs as a leading archive
-  axis (``parallel/sharded.py``);
-- over a group's ranks, the ``dp`` slices take archives round-robin and
-  the ``sp`` ranks of a slice take contiguous subint blocks;
-  ``parallel/collectives.py`` carries what crosses ranks.  Ranks may share
-  one card under ``gloo`` (NCCL refuses two ranks on one device); the same
-  code runs NCCL across distinct cards;
-- ``tp`` (channels) raises: the template is one chain of dependent adds in
-  the oracle's (subint, channel) order, which a channel split would cut
-  into ``nsub * tp`` pieces on alternating ranks.  Summing the template in
-  another order (a cuBLAS matrix-vector product) drifts the last scores
-  5.17e-5 from the oracle's at 256 x 1024 x 1024, beyond the 5e-5 bound;
-- ``dp`` over several cards of one process (the JAX package's local-device
-  mesh) is not ported (ROADMAP.md queue A.2) and raises: a process holds
-  one device of a mesh.
+- without a process group (or with ``devices`` given and no ``group``), a
+  mesh over devices of this process (``make_mesh``, JAX ``:45-78``): by
+  default :func:`local_devices`, every card the process sees, as JAX's
+  ``jax.local_devices()``; ``dp`` slices take archives round-robin and
+  the ``sp`` devices of a slice take contiguous subint blocks, with
+  ``parallel/collectives.py`` handing what crosses devices.  An explicit
+  ``devices`` list may name a device more than once: logical devices, as
+  the JAX tests' ``--xla_force_host_platform_device_count=8`` makes
+  several CPU devices.  Such a mesh proves placement and order, not
+  speed: its devices share one card's memory and one stream.  A mesh of
+  one device runs the directory batch as a leading archive axis
+  (``parallel/sharded.py``);
+- over a group's ranks, one device per rank: the ``dp`` slices take
+  archives round-robin and the ``sp`` ranks of a slice take contiguous
+  subint blocks; ``parallel/collectives.py`` carries what crosses ranks.
+  Ranks may share one card under ``gloo`` (NCCL refuses two ranks on one
+  device); the same code runs NCCL across distinct cards.  A rank that
+  holds several cards (the JAX package's per-host ``local_mesh`` under a
+  process group) is not ported (ROADMAP.md);
+- ``tp`` (channels) raises on both: the template is one chain of
+  dependent adds in the oracle's (subint, channel) order, which a channel
+  split would cut into ``nsub * tp`` pieces on alternating devices.
+  Summing the template in another order (a cuBLAS matrix-vector product)
+  drifts the last scores 5.17e-5 from the oracle's at 256 x 1024 x 1024,
+  beyond the 5e-5 bound.  Default extents take :func:`factor_mesh` as the
+  JAX package does and fold its ``tp`` share into ``dp``: 8 devices give
+  ``(4, 2, 1)``.
 
 :func:`initialize_distributed` is the ranks' entry: it joins the group
 from the ``env://`` variables ``torchrun`` sets and records this rank's
@@ -84,6 +93,10 @@ class Mesh:
     """The devices a batch runs on, with the JAX mesh's axis names and
     extents (``shape["dp"]`` etc.).
 
+    A mesh over this process's devices holds them in ``devices``,
+    ``dp``-major: the device at position ``i * sp + k`` has coordinates
+    ``(i, k)`` (:attr:`grid`).
+
     A mesh over ranks also holds its process ``group`` and its
     ``backend``, the group's ranks (``group_ranks``, global ranks in group
     order; the mesh is the first ``dp*sp`` of them, ``dp``-major),
@@ -102,8 +115,22 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """This process's device."""
+        """This process's device; on a mesh over this process's devices,
+        the first (where the results meet)."""
         return self.devices[0]
+
+    @property
+    def grid(self) -> tuple[tuple[torch.device, ...], ...]:
+        """The devices of a mesh over this process's devices as ``dp``
+        rows of ``sp``: ``grid[i][k]`` holds subint block ``k`` of ``dp``
+        slice ``i``."""
+        sp = self.shape["sp"]
+        return tuple(self.devices[i * sp:(i + 1) * sp] for i in range(self.shape["dp"]))
+
+    @property
+    def is_local(self) -> bool:
+        """Whether the mesh is over several devices of this process."""
+        return self.group is None and len(self.devices) > 1
 
     @property
     def spans_ranks(self) -> bool:
@@ -131,9 +158,39 @@ def rank_device() -> torch.device:
     return resolve_device("cuda")
 
 
+def local_devices() -> list[torch.device]:
+    """This process's cards, ``cuda:0`` to ``cuda:{n-1}`` for the ``n``
+    that ``torch.cuda.device_count()`` sees (``CUDA_VISIBLE_DEVICES``
+    honoured), each once; raises without a card."""
+    from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+    from iterative_cleaner_tpu_torch.utils.device_probe import init_watchdog
+
+    resolve_device("cuda")
+    # The first device read of a caller that brings no devices (the batch,
+    # the daemon, clean_cube's reroute): a wedged driver hangs it, and the
+    # watchdog says so (the JAX package's make_mesh does the same).
+    with init_watchdog("make_mesh device discovery"):
+        n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _indexed(device) -> torch.device:
+    """``device``, with ``cuda`` resolved to the current card's index, so
+    that the mesh's positions compare with their tensors' devices."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+
+    resolve_device(dev)
+    return torch.device("cuda", torch.cuda.current_device())  # ict: backend-init-ok(resolve_device found a card: the caller named it)
+
+
 def _extents(n: int, dp, sp, tp) -> tuple[int, int, int]:
     if dp is None and sp is None and tp is None:
         dp, sp, tp = factor_mesh(n)
+        # The port declines tp: the share factor_mesh gives it goes to dp.
+        dp, tp = dp * tp, 1
     dp, sp, tp = dp or 1, sp or 1, tp or 1
     if dp * sp * tp != n:
         raise ValueError(f"dp*sp*tp = {dp * sp * tp} != n_devices = {n}")
@@ -148,34 +205,31 @@ def _extents(n: int, dp, sp, tp) -> tuple[int, int, int]:
 
 def make_mesh(n_devices: int | None = None, dp: int | None = None, sp: int | None = None,
               tp: int | None = None, devices=None, group=None) -> Mesh:
-    """A ('dp', 'sp', 'tp') mesh.  Extents default to :func:`factor_mesh`;
-    ``dp*sp*tp`` must equal the device count, and ``tp`` must be 1.
+    """A ('dp', 'sp', 'tp') mesh over the first ``n_devices`` devices (all
+    by default).  Extents default to :func:`factor_mesh` with its ``tp``
+    share folded into ``dp``; ``dp*sp*tp`` must equal the device count,
+    and ``tp`` must be 1.
 
     Over ranks when ``group`` is given, or when ``devices`` is not and a
     default process group is initialized: the first ``n_devices`` ranks of
-    the group (all by default), this rank on ``devices[0]`` or
-    :func:`rank_device`.  Every rank of the default group must call it, in
-    the same order as its other group calls: it makes one ``sp`` group per
-    ``dp`` slice.  Otherwise one device, by default the CUDA device the
-    caller runs on (``cuda``; ``devices=["cpu"]`` for the CPU)."""
+    the group, this rank on ``devices[0]`` or :func:`rank_device`.  Every
+    rank of the default group must call it, in the same order as its other
+    group calls: it makes one ``sp`` group per ``dp`` slice.  Otherwise
+    over ``devices`` of this process, by default :func:`local_devices`
+    (``devices=["cpu"]`` for the CPU); all of one type, a device may be
+    named more than once (logical devices)."""
     if group is None and devices is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     if group is not None:
         return _rank_mesh(n_devices, dp, sp, tp, devices, group)
-    if devices is None:
-        from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
-
-        devices = [resolve_device("cuda")]
-    devices = tuple(torch.device(d) for d in devices)
-    if n_devices is None:
-        n_devices = len(devices)
-    if not 1 <= n_devices <= len(devices):
-        raise ValueError(f"n_devices = {n_devices} with {len(devices)} devices given")
-    if n_devices > 1:
-        raise NotImplementedError(
-            f"a mesh over {n_devices} devices of one process is not ported (ROADMAP.md "
-            "queue A.2); run one rank per card (initialize_distributed) and mesh the ranks")
-    return Mesh(devices=devices[:1], shape=dict(zip(AXES, _extents(1, dp, sp, tp))))
+    devices = tuple(_indexed(d) for d in (local_devices() if devices is None else devices))
+    n = len(devices) if n_devices is None else int(n_devices)
+    if not 1 <= n <= len(devices):
+        raise ValueError(f"n_devices = {n} with {len(devices)} devices given")
+    devices = devices[:n]
+    if len({d.type for d in devices}) > 1:
+        raise ValueError(f"a mesh's devices are of one type, not {[str(d) for d in devices]}")
+    return Mesh(devices=devices, shape=dict(zip(AXES, _extents(n, dp, sp, tp))))
 
 
 def _rank_mesh(n_devices, dp, sp, tp, devices, group) -> Mesh:

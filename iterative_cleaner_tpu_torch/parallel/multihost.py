@@ -47,10 +47,13 @@ def partition_paths(
     return paths[process_index::process_count]
 
 
-def local_mesh(**kw):
-    """The one-device mesh of this process's card (its rank's device after
-    ``initialize_distributed``): the normal multi-process deployment, one
-    mesh per rank over its slice of the paths."""
-    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh, rank_device
+def local_mesh(device="cuda", **kw):
+    """A mesh over this process's devices (the JAX module's ``:50-58``):
+    every local card for ``cuda`` (``parallel/autoshard.default_devices``),
+    the one card of ``cuda:N``, or ``cpu``.  Under a process group, this
+    rank's card: the normal multi-process deployment, one mesh per rank
+    over its slice of the paths."""
+    from iterative_cleaner_tpu_torch.parallel import autoshard
+    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
 
-    return make_mesh(devices=[rank_device()], **kw)
+    return make_mesh(devices=autoshard.default_devices(device), **kw)

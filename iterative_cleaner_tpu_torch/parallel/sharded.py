@@ -1,5 +1,6 @@
 """Multi-archive execution: a leading archive axis on one device, or a
-batch sharded over the ranks of a process group.
+batch sharded over the devices of this process or the ranks of a process
+group.
 
 Port of ``iterative_cleaner_tpu/parallel/sharded.py:28-161``.  The JAX
 package vmaps the single-archive loop over a leading archive axis and lays
@@ -20,32 +21,45 @@ the batch out on a ('dp', 'sp', 'tp') mesh.  On a one-device mesh
   Each archive's result equals ``fused_clean`` on that archive alone with a
   dense template.
 
-On a mesh over ranks every rank calls :func:`sharded_clean` with the same
-batch and gets the whole host result back, as on the JAX package's
-process-spanning mesh.  A rank uploads only its slice: the archives
-``dp_index::dp`` and the subints of its ``sp`` block.  Its step is the
-chunked route's block step with the blocks on other ranks
-(``parallel/collectives.py``): the template continued along the ``sp``
-ranks in the oracle's order, the four maps of its block
-(``parallel/chunked.block_maps``: the kernel route or the plain one, from
-the same resolver as every route — the JAX sharded route turns Pallas off
-only because GSPMD cannot partition a ``pallas_call``, and a rank's block
-is a plain contiguous cube), the maps gathered along subints, then the
-scalers, the zap and the cycle test on the whole maps on every rank of the
-slice, which therefore stop together.  Each ``dp`` slice loops on its own;
-the results meet once, at the end.
+On a mesh over several devices the ``dp`` slices take the archives
+``dp_index::dp`` and the ``sp`` devices (or ranks) of a slice take
+contiguous subint blocks (``subint_bounds``); :func:`shard_batch` uploads
+each device's part from the host once and never stacks the cube on one
+device first.  A slice's step is the chunked route's block step with the
+blocks on other devices (``parallel/collectives.py``): the template
+continued along the ``sp`` devices in the oracle's order, the four maps of
+each block (``parallel/chunked.block_maps``: the kernel route or the plain
+one, from the same resolver as every route — the JAX sharded route turns
+Pallas off only because GSPMD cannot partition a ``pallas_call``, and a
+block is a plain contiguous cube), the maps gathered along subints, then
+the scalers, the zap and the cycle test on the whole maps.  The scores are
+the one-device batch's bit for bit.
 
-The template is dense every iteration: ``batched_fused_clean`` in the JAX
-package passes no ``incremental`` (a vmapped ``lax.cond`` would run both
-branches), and neither does the port.
+- In one process (:func:`_local_clean`) the scalers run on each slice's
+  first device, and the slices run in lockstep like the vmapped loop:
+  each iteration issues every device's work, then makes one host read of
+  every slice's stop flags, gathered on the mesh's first device.  A slice
+  that has stopped is frozen by its ``active`` mask.  The results meet on
+  the first device and come back in one fetch; ``want_history`` returns
+  the histories, as JAX does on a mesh the process fully addresses.
+- Over ranks (:func:`_rank_clean`) every rank calls :func:`sharded_clean`
+  with the same batch and gets the whole host result back, as on the JAX
+  package's process-spanning mesh; every rank of a slice runs the scalers
+  on the gathered maps, so they stop together.  Each ``dp`` slice loops
+  on its own, and the results meet once, at the end; ``want_history``
+  returns no history there, as the JAX package does.
+
+``tp`` stays declined (``parallel/mesh.py``).  The template is dense every
+iteration: ``batched_fused_clean`` in the JAX package passes no
+``incremental`` (a vmapped ``lax.cond`` would run both branches), and
+neither does the port.
 
 Archives are bucketed by *exact* shape.  Zero-weight padding is not
 mask-transparent — padded profiles would still enter the mask-blind FFT
 diagnostic's plain medians and change real archives' masks — so a batch is
 never padded.  ``sharded_clean(want_history=True)`` also fetches the
 per-archive iteration counts and the populated prefix of the mask
-history: the serving daemon's convergence forensics.  On a mesh over ranks
-it returns no history, as the JAX package does on a process-spanning mesh.
+history: the serving daemon's convergence forensics.
 """
 
 from __future__ import annotations
@@ -107,36 +121,65 @@ def _converge(step, w0b, max_iter):
     """The vmapped ``lax.while_loop`` written out over ``step(w_prev) ->
     (test, new_w)`` on ``(a, nsub, nchan)`` maps: :func:`batched_fused_clean`'s
     loop and return value."""
-    narch, nsub, nchan = w0b.shape
-    dev = w0b.device
-    history = torch.zeros((narch, max_iter + 1, nsub, nchan), dtype=w0b.dtype, device=dev)
-    history[:, 0] = w0b
-    rows = torch.arange(max_iter + 1, device=dev)
-    test = torch.zeros_like(w0b)
-    w_prev = w0b
-    loops = torch.full((narch,), max_iter, dtype=torch.int64, device=dev)
-    done = torch.zeros(narch, dtype=torch.bool, device=dev)
-    xs = torch.zeros(narch, dtype=torch.int64, device=dev)
-    active = torch.ones(narch, dtype=torch.bool, device=dev)
+    return _converge_lockstep([step], [w0b], max_iter)[0]
+
+
+class _Carry:
+    """One batch's loop state on its device: the vmapped loop's carry."""
+
+    def __init__(self, w0b, max_iter):
+        narch, nsub, nchan = w0b.shape
+        dev = w0b.device
+        self.history = torch.zeros((narch, max_iter + 1, nsub, nchan), dtype=w0b.dtype,
+                                   device=dev)
+        self.history[:, 0] = w0b
+        self.rows = torch.arange(max_iter + 1, device=dev)
+        self.test = torch.zeros_like(w0b)
+        self.w_prev = w0b
+        self.loops = torch.full((narch,), max_iter, dtype=torch.int64, device=dev)
+        self.done = torch.zeros(narch, dtype=torch.bool, device=dev)
+        self.xs = torch.zeros(narch, dtype=torch.int64, device=dev)
+        self.active = torch.ones(narch, dtype=torch.bool, device=dev)
+
+    def advance(self, x, t_new, new_w) -> None:
+        """Iteration ``x``'s scores and weights, kept where still active."""
+        history = self.history
+        # Rows 0..x-1 are populated for every archive still active.
+        hit = ((self.rows < x)[None]
+               & (new_w[:, None] == history).flatten(2).all(dim=2)).any(dim=1)
+        live = self.active[:, None, None]
+        # A stopped archive's row x stays unwritten, as under vmap.
+        history[:, x] = torch.where(live, new_w, history[:, x])
+        self.test = torch.where(live, t_new, self.test)
+        self.w_prev = torch.where(live, new_w, self.w_prev)
+        stop = self.active & hit
+        self.loops = torch.where(stop, x, self.loops)
+        self.done = self.done | stop
+        self.xs = torch.where(self.active, x, self.xs)
+        self.active = self.active & ~hit
+
+    def result(self):
+        return self.test, self.w_prev, self.loops, self.done, self.xs, None, self.history
+
+
+def _converge_lockstep(steps, w0bs, max_iter):
+    """:func:`_converge` over several batches, each ``steps[j]`` on
+    ``w0bs[j]``'s device, advanced together: each iteration issues every
+    batch's step, then reads the host once, for whether any archive of any
+    batch is still active (the flags gathered on the first batch's
+    device).  Returns each batch's :func:`_converge` value."""
+    carries = [_Carry(w0b, max_iter) for w0b in w0bs]
+    first = w0bs[0].device
     x = 0
     while x < max_iter:
         x += 1
-        t_new, new_w = step(w_prev)
-        # Rows 0..x-1 are populated for every archive still active.
-        hit = ((rows < x)[None] & (new_w[:, None] == history).flatten(2).all(dim=2)).any(dim=1)
-        live = active[:, None, None]
-        # A stopped archive's row x stays unwritten, as under vmap.
-        history[:, x] = torch.where(live, new_w, history[:, x])
-        test = torch.where(live, t_new, test)
-        w_prev = torch.where(live, new_w, w_prev)
-        stop = active & hit
-        loops = torch.where(stop, x, loops)
-        done = done | stop
-        xs = torch.where(active, x, xs)
-        active = active & ~hit
-        if x < max_iter and not bool(active.any()):   # the host read
-            break
-    return test, w_prev, loops, done, xs, None, history
+        for carry, step in zip(carries, steps):
+            carry.advance(x, *step(carry.w_prev))
+        if x < max_iter:
+            active = torch.cat(_meet([c.active for c in carries], first))
+            if not bool(active.any()):   # the host read
+                break
+    return [c.result() for c in carries]
 
 
 def rank_clean_step(Dblk, w0b, validb, w_prev, chanthresh, subintthresh, mesh, bounds, *,
@@ -156,6 +199,48 @@ def rank_clean_step(Dblk, w0b, validb, w_prev, chanthresh, subintthresh, mesh, b
     return test, new_w
 
 
+def local_clean_step(blocks, w0_blocks, valid_blocks, w0b, validb, w_prev, chanthresh,
+                     subintthresh, bounds, *, pulse_region, use_kernel=False):
+    """One iteration of a ``dp`` slice of an in-process mesh: its ``sp``
+    blocks ``blocks[k] (a, rows_k, nchan, nbin)`` (subints ``bounds[k]``,
+    each on its device, with its rows of the original weights and valid
+    mask) and the slice's whole ``(a, nsub, nchan)`` maps on its first
+    device, where (test, new_w) are made."""
+    rows = collectives.scatter_rows(w_prev, bounds, [D.device for D in blocks])
+    templates = collectives.chain_template(blocks, rows)
+    maps = [block_maps(D, T, w0k, vk, pulse_region, use_kernel)
+            for D, T, w0k, vk in zip(blocks, templates, w0_blocks, valid_blocks)]
+    d_std, d_mean, d_ptp, d_fft = collectives.gather_maps(maps, w0b.device)
+    test = scale_and_combine(d_std, d_mean, d_ptp, d_fft, validb, chanthresh, subintthresh)
+    # Zap where test >= 1; NaN never flags.
+    new_w = torch.where(test >= 1.0, torch.zeros((), dtype=w0b.dtype, device=w0b.device), w0b)
+    return test, new_w
+
+
+def _upload(cubes, weights, take, subints, weight_rows, device):
+    """The archives ``take`` of a batch on ``device``: their subints
+    ``[lo, hi)`` and their weights (those rows where ``weight_rows``, else
+    whole), each archive copied into its slice of one preallocated
+    tensor."""
+    lo, hi = subints
+    wlo, whi = subints if weight_rows else (0, np.shape(weights[0])[0])
+    shape = np.shape(cubes[0])
+    out_D = torch.empty((len(take), hi - lo, *shape[1:]), dtype=torch.float32, device=device)
+    out_w = torch.empty((len(take), whi - wlo, shape[1]), dtype=torch.float32, device=device)
+    for j, src in enumerate(take):
+        with warnings.catch_warnings():
+            # A read-only host array is only read here (torch warns that
+            # writing through the wrapping tensor would be undefined).  Only
+            # that warning: the card's sync warnings must reach the route
+            # contracts.
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable",
+                                    category=UserWarning)
+            out_D[j].copy_(torch.from_numpy(np.ascontiguousarray(cubes[src][lo:hi], np.float32)))
+            out_w[j].copy_(torch.from_numpy(
+                np.ascontiguousarray(weights[src][wlo:whi], np.float32)))
+    return out_D, out_w
+
+
 def shard_batch(Db, w0b, mesh):
     """Upload a same-shape batch to this process's device.  ``Db`` and
     ``w0b`` are stacked host arrays or sequences of per-archive arrays: each
@@ -167,7 +252,10 @@ def shard_batch(Db, w0b, mesh):
     block of each cube (only those are read, so a memory-mapped cube is
     read in part), and those archives' whole weight maps (the scalers need
     every subint's); a rank outside the mesh uploads nothing and gets
-    ``(None, None)``."""
+    ``(None, None)``.  On a mesh over this process's devices, two lists in
+    the mesh's device order: device ``(i, k)`` holds the archives
+    ``i::dp`` (none where the batch is shorter than ``dp``), their subints
+    and weight rows of block ``k``."""
     cubes, weights = list(Db), list(w0b)
     if len(cubes) != len(weights):
         raise ValueError(f"{len(cubes)} cubes but {len(weights)} weight maps")
@@ -178,30 +266,21 @@ def shard_batch(Db, w0b, mesh):
         if tuple(np.shape(D)) != shape or tuple(np.shape(w)) != shape[:2]:
             raise ValueError(f"archive {j} has shape {np.shape(D)} / {np.shape(w)}; the "
                              f"batch is {shape}: bucket by exact shape, never pad")
-    take, (lo, hi) = range(len(cubes)), (0, shape[0])
-    if mesh.spans_ranks:
-        if mesh.shape["sp"] > shape[0]:
-            raise ValueError(f"sp={mesh.shape['sp']} ranks for {shape[0]} subints: a rank "
-                             "would hold none")
-        if mesh.coords is None:
-            return None, None
-        dp_index, sp_index = mesh.coords
-        take = range(dp_index, len(cubes), mesh.shape["dp"])
-        lo, hi = subint_bounds(shape[0], mesh.shape["sp"])[sp_index]
-    dev = mesh.device
-    out_D = torch.empty((len(take), hi - lo, *shape[1:]), dtype=torch.float32, device=dev)
-    out_w = torch.empty((len(take), *shape[:2]), dtype=torch.float32, device=dev)
-    for j, src in enumerate(take):
-        with warnings.catch_warnings():
-            # A read-only host array is only read here (torch warns that
-            # writing through the wrapping tensor would be undefined).  Only
-            # that warning: the card's sync warnings must reach the route
-            # contracts.
-            warnings.filterwarnings("ignore", message="The given NumPy array is not writable",
-                                    category=UserWarning)
-            out_D[j].copy_(torch.from_numpy(np.ascontiguousarray(cubes[src][lo:hi], np.float32)))
-            out_w[j].copy_(torch.from_numpy(np.ascontiguousarray(weights[src], np.float32)))
-    return out_D, out_w
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    if (mesh.is_local or mesh.spans_ranks) and sp > shape[0]:
+        raise ValueError(f"sp={sp} devices for {shape[0]} subints: a device would hold none")
+    bounds = subint_bounds(shape[0], sp)
+    if mesh.is_local:
+        parts = [_upload(cubes, weights, range(i, len(cubes), dp), bounds[k], True, dev)
+                 for i, row in enumerate(mesh.grid) for k, dev in enumerate(row)]
+        return [D for D, _ in parts], [w for _, w in parts]
+    if not mesh.spans_ranks:
+        return _upload(cubes, weights, range(len(cubes)), (0, shape[0]), False, mesh.device)
+    if mesh.coords is None:
+        return None, None
+    dp_index, sp_index = mesh.coords
+    return _upload(cubes, weights, range(dp_index, len(cubes), dp), bounds[sp_index], False,
+                   mesh.device)
 
 
 def sharded_clean_single(D: np.ndarray, w0: np.ndarray, cfg: CleanConfig, mesh=None):
@@ -218,7 +297,7 @@ def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None, want_history: bool = Fal
     ``Db`` (a, nsub, nchan, nbin) and ``w0b`` (a, nsub, nchan): stacked host
     arrays or sequences of per-archive arrays.  ``mesh`` defaults to
     ``make_mesh()``: the ranks of the default process group when one is
-    initialized, else the one CUDA device (raises without a card).  The
+    initialized, else this process's cards (raises without a card).  The
     route is the kernel's wherever ``resolve_use_kernel`` puts a clean of
     this shape on the device.  Returns host arrays: (test (a,s,c), weights
     (a,s,c), loops (a,), converged (a,)), fetched together once at the end
@@ -239,6 +318,8 @@ def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None, want_history: bool = Fal
     if mesh.spans_ranks:
         out = _rank_clean(Db, w0b, cfg, mesh)
         return (*out, None, None) if want_history else out
+    if mesh.is_local:
+        return _local_clean(Db, w0b, cfg, mesh, want_history)
     dev = device_for(mesh.device)
     Dt, w0t = shard_batch(Db, w0b, mesh)
     narch, nsub, nchan, nbin = Dt.shape
@@ -265,6 +346,66 @@ def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None, want_history: bool = Fal
     x = packed[2 * n + 2 * narch:].astype(np.int64)
     hist = _hist[:, : int(x.max()) + 1].cpu().numpy()
     return (*out, x, hist)
+
+
+def _local_clean(Db, w0b, cfg: CleanConfig, mesh, want_history: bool):
+    """:func:`sharded_clean` on a mesh over this process's devices: every
+    ``dp`` slice that holds archives through :func:`local_clean_step`, the
+    slices in lockstep (:func:`_converge_lockstep`), then every slice's
+    results handed to the mesh's first device and fetched at once."""
+    Ds, ws = shard_batch(Db, w0b, mesh)
+    narch = len(Db)
+    nsub, nchan, nbin = (int(d) for d in np.shape(Db[0]))
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    bounds = subint_bounds(nsub, sp)
+    first = device_for(mesh.device)
+    use_kernel = kernel_for(cfg.replace(x64=False), nbin, first)
+    thresholds = (float(cfg.chanthresh), float(cfg.subintthresh))
+    steps, w0s, order = [], [], []
+    for i, row in enumerate(mesh.grid):
+        blocks, w_blocks = Ds[i * sp:(i + 1) * sp], ws[i * sp:(i + 1) * sp]
+        if blocks[0].shape[0] == 0:
+            continue   # a batch shorter than dp: this slice holds no archive
+        valid_blocks = [w != 0 for w in w_blocks]
+        w0t = collectives.gather_maps([(w,) for w in w_blocks], row[0])[0]
+        valid = w0t != 0
+
+        def step(w_prev, blocks=blocks, w_blocks=w_blocks, valid_blocks=valid_blocks,
+                 w0t=w0t, valid=valid):
+            return local_clean_step(blocks, w_blocks, valid_blocks, w0t, valid, w_prev,
+                                    *thresholds, bounds, pulse_region=tuple(cfg.pulse_region),
+                                    use_kernel=use_kernel)
+
+        steps.append(step)
+        w0s.append(w0t)
+        order.extend(range(i, narch, dp))
+    del Ds
+    outs = _converge_lockstep(steps, w0s, int(cfg.max_iter))
+    n = nsub * nchan
+    # One fetch: per archive its scores, its weights, loops, converged and
+    # iterations (small integers, exact in float32), in slice order.
+    packs = [torch.cat((test.reshape(-1, n), w.reshape(-1, n), loops[:, None].to(test.dtype),
+                        done[:, None].to(test.dtype), xs[:, None].to(test.dtype)), dim=1)
+             for test, w, loops, done, xs, _r, _hist in outs]
+    packed = torch.cat(_meet(packs, mesh.device)).cpu().numpy()
+    rows = np.empty_like(packed)
+    rows[order] = packed
+    out = (rows[:, :n].reshape(narch, nsub, nchan), rows[:, n:2 * n].reshape(narch, nsub, nchan),
+           rows[:, 2 * n].astype(np.int64), rows[:, 2 * n + 1].astype(bool))
+    if not want_history:
+        return out
+    x = rows[:, 2 * n + 2].astype(np.int64)
+    hist = np.empty((narch, int(x.max()) + 1, nsub, nchan), dtype=np.float32)
+    hist[order] = torch.cat(_meet([h[:, :hist.shape[1]] for *_, h in outs],
+                                  mesh.device)).cpu().numpy()
+    return (*out, x, hist)
+
+
+def _meet(parts, device):
+    """Each batch's ``parts[j]`` on ``device``, where the first batch's
+    already is (on a mesh, the first slice that holds archives is the
+    mesh's first row)."""
+    return [p if j == 0 else collectives.hand(p, device) for j, p in enumerate(parts)]
 
 
 def _rank_clean(Db, w0b, cfg: CleanConfig, mesh):

@@ -4,7 +4,8 @@ A port of ``iterative_cleaner_tpu/service/daemon.py``: ``CleaningService``,
 ``ServeConfig``, ``serve_main``, ``run_smoke`` and ``console_main``.  The
 JAX daemon's device backend ``"jax"`` is the port's ``"torch"`` on
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
-kernels), its mesh is the port's one-device ``parallel/mesh.make_mesh``,
+kernels), its mesh is ``parallel/multihost.local_mesh`` of that device
+(every card of the process for ``cuda``, one for ``cuda:N``),
 and its wedge guard the port's ``utils/device_probe``.  Loader threads
 preprocess on the host with ``ops/preprocess.preprocess``, which prefers
 the native runtime.
@@ -225,11 +226,11 @@ class CleaningService:
         # An explicit --bucket_cap is honored on EVERY backend (a numpy
         # replica in a fleet test can park cubes in a wide bucket); the
         # default stays backend-dependent: the mesh's dp extent for torch
-        # (1: one card), 1 for the oracle.
+        # (the local cards' for cuda, 1 for one card), 1 for the oracle.
         cap = self.serve_cfg.bucket_cap or 1
         if self.backend_mode == "torch":
             if self.ctx.mesh is None:
-                from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+                from iterative_cleaner_tpu_torch.parallel.multihost import local_mesh
                 from iterative_cleaner_tpu_torch.utils.device_probe import (
                     init_watchdog,
                 )
@@ -239,7 +240,7 @@ class CleaningService:
                 # structured warning (ICT_INIT_TIMEOUT_S) instead of a
                 # silent never-came-up.
                 with init_watchdog("serve cuda init"):
-                    self.ctx.mesh = make_mesh(devices=[self.serve_cfg.device])
+                    self.ctx.mesh = local_mesh(self.serve_cfg.device)
             cap = self.serve_cfg.bucket_cap or max(
                 int(self.ctx.mesh.shape["dp"]), 1)
         self.scheduler = ShapeBucketScheduler(

@@ -11,8 +11,11 @@ The JAX package warms by compiling XLA executables and keeps its account in
 port's substitute is one real dispatch of zeros per batch size through
 ``parallel/sharded.sharded_clean``: it builds and loads both hand kernels
 (``ops/cuda_build``, keyed by source hash) and fills their launch-plan
-caches, the first-call costs a steady-state request must not pay.  On a
-zero cube the loop stops after one iteration, so the run is cheap.
+caches, the first-call costs a steady-state request must not pay.  Each
+batch size runs on the daemon's mesh, so the dispatches of the sizes up to
+the cap (the mesh's ``dp`` extent by default) put zeros on every device a
+real dispatch can reach: each device loads the kernels in its own context.
+On a zero cube the loop stops after one iteration, so the run is cheap.
 :meth:`WarmPool.is_warm` reports what those dispatches did in this
 process.
 """

@@ -1,9 +1,10 @@
 """Shape-bucketed admission: fill a coalesced dp slice or hit a deadline.
 
-A copy of ``iterative_cleaner_tpu/service/scheduler.py``.  On one card the
-mesh's ``dp`` extent is 1, so ``bucket_cap`` is the number of same-shape
-cubes one dispatch takes; ``parallel/batch._finish_bucket`` still cuts a
-dispatch the card cannot hold into smaller ones.
+A copy of ``iterative_cleaner_tpu/service/scheduler.py``.  The daemon's
+default ``bucket_cap`` is the mesh's ``dp`` extent (1 on one card), so a
+full bucket puts an archive on each ``dp`` slice;
+``parallel/batch._finish_bucket`` still cuts a dispatch the cards cannot
+hold into smaller ones.
 
 The batching rules are the ones `parallel/batch.py` established for
 directories, applied to a continuous arrival stream:
