@@ -183,7 +183,8 @@ exits non-zero:
    (rc 0 on this host's Python), then the route contracts
    (``analysis/contracts.py``) on cuda, every entry point of the stepwise,
    fused, chunked and batch routes, and the ranks route on a one-rank
-   ``gloo`` group (its collectives staged through the host), with the
+   ``gloo`` group (its collectives staged through the host), holding the
+   card once and twice (``rank_devices``: one ``sp=2`` slice), with the
    kernel route off and on, on the
    tiny cube and at 256 x 1024 x 1024 on phase 4's cube (the chunked route in
    32-subint blocks, a batch of 2 LOFAR cubes): each run's CUDA syncs
@@ -194,23 +195,32 @@ exits non-zero:
 18. ranks — the multi-process tier, ranks in child processes sharing
    cuda:0 (``parallel/mesh.initialize_distributed``, each with a timeout),
    each memory-mapping the cubes the batch phase wrote as ``.npy`` and
-   uploading only its slice: (a) two ``gloo`` ranks,
-   ``sharded_clean_single`` of phase 4's cube over ``sp=2`` — the oracle's
-   mask, loops and converged, score drift within 5e-5, the largest score
-   difference against the one-card batched route, rank 0's syncs against
-   the route contract (``ROUTE_HOST_READS['ranks']``); (b) four ``gloo``
-   ranks, ``dp=2 x sp=2``, ``sharded_clean`` of the batch phase's seeds 42
-   and 101 — its masks; (c) one ``nccl`` rank, (a) at ``sp=1`` through
+   uploading only its device blocks: (a) two ``gloo`` ranks,
+   ``sharded_clean_single`` of phase 4's cube over ``sp=2``, one device a
+   rank — the oracle's mask, loops and converged, score drift within 5e-5,
+   rank 0's syncs against the route contract
+   (``ROUTE_HOST_READS['ranks']``); the same two processes, each holding
+   cuda:0 twice (``initialize_distributed(devices=[...])``, logical
+   devices), then run (b) ``ranks2x2_sp4``, the cube over 2 ranks x 2
+   devices at ``sp=4`` (the JAX package's mesh over two processes), rank
+   0's syncs against ``ROUTE_HOST_READS['rank_devices']``, and (c)
+   ``ranks2x2_dp2_sp2``, the batch phase's seeds 42 and 101 at ``dp=2 x
+   sp=2``, a whole slice on each rank; (d) four ``gloo`` ranks, ``dp=2 x
+   sp=2``, seeds 42 and 101; (e) one ``nccl`` rank, (a) at ``sp=1`` through
    the device-tensor path, also held to the contract; two ``nccl`` ranks on
-   one card refused (NCCL's error printed); (d) two ``gloo`` ranks each
-   running ``cli.main`` over the service phase's three LOFAR ``.ictb``
-   archives — slices ``[p0, p2]`` and ``[p1]``, ``r.json.p0`` and
-   ``r.json.p1`` and no ``r.json``, the batch phase's masks.  Every rank's
-   result identical, both kernels launched on every rank (by path:
-   ``sharded_sp2``, ``dp2_sp2``, ``nccl_sp1``, ``cli_ranks``), the staged
-   copies as the collectives' order predicts; per run the backend, ranks,
-   wall, the template chain's time and the bytes gathered and staged per
-   iteration;
+   one card refused (NCCL's error printed); (f) two ``gloo`` ranks, each
+   holding cuda:0 twice, running ``cli.main`` over the service phase's
+   three LOFAR ``.ictb`` archives — slices ``[p0, p2]`` and ``[p1]``,
+   ``r.json.p0`` and ``r.json.p1`` and no ``r.json``, the batch phase's
+   masks — then the same with ``--sharded_batch``, each rank batching its
+   slice on its own ``dp=2`` mesh over its two devices.  Every rank's
+   result identical; the batch phase's masks and scores bit for bit; each
+   kernel's launches on every rank its device blocks x iterations (by
+   path: ``sharded_sp2``, ``ranks2x2_sp4``, ``ranks2x2_dp2_sp2``,
+   ``dp2_sp2``, ``nccl_sp1``, ``cli_ranks``, ``cli_ranks_sharded_batch``);
+   no peer copy; the staged copies as the collectives' order predicts;
+   per run the backend, ranks, positions, wall, the template chain's time
+   and the bytes handed and staged per iteration; the phase within 120 s;
 19. local mesh — the mesh over one process's devices
    (``parallel/mesh.make_mesh(devices=...)``), on this one card as logical
    devices: ``autoshard.default_devices`` replaced by ``[cuda:0, cuda:0]``
@@ -3908,14 +3918,20 @@ def phase_contracts(lofar) -> tuple[int, int]:
     return fit, template
 
 
-#: The ranks phase's sharded cleans: (path label, backend, ranks, dp, sp,
-#: the batch phase's archives it cleans, whether rank 0 is held to the
+#: The ranks phase's sharded cleans, by group of rank processes: (group
+#: label, backend, ranks, the logical devices on cuda:0 each rank holds,
+#: its runs).  A run: (path label, the rank's devices the mesh takes, dp,
+#: sp, the batch phase's archives it cleans, whether rank 0 is held to the
 #: route contract).  Ranks share cuda:0; NCCL refuses two ranks on one
-#: device, so those run gloo, staging through the host.
+#: device, so those run gloo, staging through the host.  The runs of ranks
+#: that hold two devices share the sp=2 group's processes: a process start
+#: costs more than a LOFAR clean.
 RANK_RUNS = (
-    ("sharded_sp2", "gloo", 2, 1, 2, (0,), True),
-    ("dp2_sp2", "gloo", 4, 2, 2, (0, 1), False),
-    ("nccl_sp1", "nccl", 1, 1, 1, (0,), True),
+    ("sharded", "gloo", 2, 2, (("sharded_sp2", 1, 1, 2, (0,), True),
+                               ("ranks2x2_sp4", 2, 1, 4, (0,), True),
+                               ("ranks2x2_dp2_sp2", 2, 2, 2, (0, 1), False))),
+    ("dp2_sp2", "gloo", 4, 1, (("dp2_sp2", 1, 2, 2, (0, 1), False),)),
+    ("nccl_sp1", "nccl", 1, 1, (("nccl_sp1", 1, 1, 1, (0,), True),)),
 )
 #: Seconds a rank process may take; its group's collectives time out
 #: sooner, so a rank that dies fails its peers instead of hanging them.
@@ -3923,12 +3939,14 @@ RANK_TIMEOUT_S = 180
 RANK_GROUP_TIMEOUT_S = 120
 RANKS_PHASE_S = 120
 
-#: One rank of the ranks phase: joins the group on cuda:0 and, by its
-#: ``mode``, cleans memory-mapped cubes through sharded_clean (held to the
-#: route contract on rank 0 when asked), runs the CLI over paths, or makes
-#: a first NCCL collective that must be refused.  Writes rank<r>.json
-#: (and rank<r>.npz) to its ``out`` directory.
-RANK_CHILD = r'''
+#: One rank of the ranks phase: joins the group holding ``devices`` (cuda:0
+#: once or more) and, by its ``mode``, cleans memory-mapped cubes through
+#: sharded_clean, one run after another (held to the route contract on
+#: rank 0 when asked), runs the CLI over paths (the directory split, then
+#: the same with --sharded_batch), or makes a first NCCL collective that
+#: must be refused.  Writes rank<r>.json (and rank<r>_<run>.npz) to its
+#: ``out`` directory.
+RANK_CHILD = r"""
 import contextlib, dataclasses, json, os, sys, time
 t_start = time.perf_counter()
 args = json.loads(sys.argv[1])
@@ -3936,11 +3954,14 @@ rank = int(os.environ["RANK"])
 import numpy as np
 import torch
 import torch.distributed as dist
-from iterative_cleaner_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+from iterative_cleaner_tpu_torch.parallel.mesh import (
+    initialize_distributed, make_mesh, rank_devices)
 t_import = time.perf_counter()
-dev = initialize_distributed(backend=args["backend"], device="cuda:0", timeout_s=args["timeout"])
-out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
-       "import_s": t_import - t_start, "init_s": time.perf_counter() - t_import}
+dev = initialize_distributed(backend=args["backend"], devices=args["devices"],
+                             timeout_s=args["timeout"])
+out = {"rank": rank, "device": str(dev), "devices": [str(d) for d in rank_devices()],
+       "backend": dist.get_backend(), "import_s": t_import - t_start,
+       "init_s": time.perf_counter() - t_import}
 path = os.path.join(args["out"], f"rank{rank}.json")
 if args["mode"] == "nccl_refused":
     try:
@@ -3956,59 +3977,89 @@ if args["mode"] == "nccl_refused":
     os._exit(0)   # the group may be broken: no teardown that could wait on it
 from iterative_cleaner_tpu_torch.ops import fused_kernels as fk
 from iterative_cleaner_tpu_torch.ops import template as tp
+
+def launches():
+    return [fk.fused_fit_moments.launches, tp.build_template.launches]
+
 if args["mode"] == "cli":
     from iterative_cleaner_tpu_torch import cli
+    from iterative_cleaner_tpu_torch.parallel import batch
     from iterative_cleaner_tpu_torch.parallel.multihost import partition_paths
-    t0 = time.perf_counter()
-    out["rc"] = cli.main(["-q", "--report", "r.json", *args["paths"]])
-    out["wall_s"] = time.perf_counter() - t0
+    meshes, real = [], batch.clean_directory_batch
+    def spy(paths, cfg, mesh=None):
+        meshes.append({"shape": mesh.shape, "devices": [str(d) for d in mesh.devices]})
+        return real(paths, cfg, mesh=mesh)
+    batch.clean_directory_batch = spy
     out["slice"] = partition_paths(args["paths"])
+    for name, flags in (("split", []), ("sharded_batch", ["--sharded_batch"])):
+        os.makedirs(os.path.join(args["out"], name), exist_ok=True)
+        os.chdir(os.path.join(args["out"], name))
+        before = launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["-q", *flags, "--report", "r.json", *args["paths"]])
+        out[name] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                     "launches": [b - a for a, b in zip(before, launches())]}
+        # Both runs write each archive's cleaned file beside it: keep each
+        # run's under a name of its own.
+        for rep in json.load(open(f"r.json.p{rank}")):
+            if rep["out_path"]:
+                os.replace(rep["out_path"], f"{rep['out_path']}.{name}")
+    out["sharded_batch"]["meshes"] = meshes
 else:
     from iterative_cleaner_tpu_torch.analysis import contracts
     from iterative_cleaner_tpu_torch.config import CleanConfig
     from iterative_cleaner_tpu_torch.parallel import collectives, sharded
-    cubes = [np.load(p, mmap_mode="r") for p in args["cubes"]]
-    w0s = [np.load(p) for p in args["weights"]]
-    mesh = make_mesh(dp=args["dp"], sp=args["sp"], tp=1)
     cfg = CleanConfig(backend="torch")
-    out["coords"] = mesh.coords
-    out["ready_s"] = time.perf_counter() - t_start
-    collectives.traffic.reset()
-    torch.cuda.synchronize(dev)
-    dist.barrier()
-    t0 = time.perf_counter()
-    test, w, loops, done = sharded.sharded_clean(cubes, w0s, cfg, mesh)
-    out["wall_s"] = time.perf_counter() - t0
-    out["traffic"] = dataclasses.asdict(collectives.traffic)
-    mine = range(mesh.coords[0], len(cubes), mesh.shape["dp"])
-    out["iterations"] = max(int(loops[j]) if done[j] else int(cfg.max_iter) for j in mine)
-    out["archives"] = len(mine)
-    np.savez(os.path.join(args["out"], f"rank{rank}.npz"), test=test, w=w, loops=loops,
-             done=done)
-    out["launches"] = [fk.fused_fit_moments.launches, tp.build_template.launches]
-    if args["trace"]:
+    max_iter = int(cfg.max_iter)
+    out["runs"] = {}
+    for run in args["runs"]:
+        cubes = [np.load(args["cubes"][str(j)], mmap_mode="r") for j in run["archives"]]
+        w0s = [np.load(args["weights"][str(j)]) for j in run["archives"]]
+        mesh = make_mesh(dp=run["dp"], sp=run["sp"], tp=1, group=dist.group.WORLD,
+                         devices=rank_devices()[:run["k"]])
+        dp = mesh.shape["dp"]
+        held = [(i, j) for i, _ in mesh.positions for j in range(i, len(cubes), dp)]
+        said = {"coords": mesh.coords, "positions": mesh.positions, "k": len(mesh.devices),
+                "blocks": sum(1 for i, _ in mesh.positions if i < len(cubes)),
+                "archive_blocks": len(held), "ready_s": time.perf_counter() - t_start}
         collectives.traffic.reset()
-        trace = contracts.Trace(dev) if rank == 0 else contextlib.nullcontext()
-        with trace:
-            again = sharded.sharded_clean(cubes, w0s, cfg, mesh)
-        assert np.array_equal(again[1], w)
-        if rank == 0:
-            units = {"run": 1, "archive": out["archives"],
-                     "continuing iteration": min(out["iterations"], int(cfg.max_iter) - 1),
-                     "staged read": collectives.traffic.staged_reads,
-                     "staged upload": collectives.traffic.staged_uploads}
-            out["contract"] = {
-                "syncs": len(trace.syncs), "sites": sorted(set(trace.syncs)),
-                "reads": len(trace.reads), "uploads": len(trace.uploads), "units": units,
-                "f64": sorted(trace.f64), "want": contracts.expected_counts(
-                    contracts.ROUTE_HOST_READS["ranks"]["sharded_clean"], units)}
-if args["mode"] == "cli":
-    out["launches"] = [fk.fused_fit_moments.launches, tp.build_template.launches]
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        before = launches()
+        t0 = time.perf_counter()
+        test, w, loops, done = sharded.sharded_clean(cubes, w0s, cfg, mesh)
+        said["wall_s"] = time.perf_counter() - t0
+        said["launches"] = [b - a for a, b in zip(before, launches())]
+        said["traffic"] = dataclasses.asdict(collectives.traffic)
+        said["iterations"] = max((int(loops[j]) if done[j] else max_iter for _, j in held),
+                                 default=0)
+        np.savez(os.path.join(args["out"], f"rank{rank}_{run['label']}.npz"), test=test, w=w,
+                 loops=loops, done=done)
+        if run["trace"]:
+            collectives.traffic.reset()
+            trace = contracts.Trace(dev) if rank == 0 else contextlib.nullcontext()
+            with trace:
+                again = sharded.sharded_clean(cubes, w0s, cfg, mesh)
+            assert np.array_equal(again[1], w)
+            if rank == 0:
+                route = "ranks" if len(mesh.devices) == 1 else "rank_devices"
+                units = {"run": 1, "archive": len({j for _, j in held}),
+                         "archive block": len(held),
+                         "continuing iteration": min(said["iterations"], max_iter - 1),
+                         "staged read": collectives.traffic.staged_reads,
+                         "staged upload": collectives.traffic.staged_uploads}
+                said["contract"] = {
+                    "route": route, "syncs": len(trace.syncs), "sites": sorted(set(trace.syncs)),
+                    "reads": len(trace.reads), "uploads": len(trace.uploads), "units": units,
+                    "f64": sorted(trace.f64), "want": contracts.expected_counts(
+                        contracts.ROUTE_HOST_READS[route]["sharded_clean"], units)}
+        said["end_s"] = time.perf_counter() - t_start
+        out["runs"][run["label"]] = said
 out["end_s"] = time.perf_counter() - t_start
 with open(path, "w") as fh:
     json.dump(out, fh)
 dist.destroy_process_group()
-'''
+"""
 
 
 def _free_port() -> int:
@@ -4073,61 +4124,95 @@ def _ranks_ok(label, got) -> list[dict]:
     return [said for _rc, said, _err in got]
 
 
-def _rank_clean(work, label, backend, n, dp, sp, archives, trace, inputs) -> dict:
-    """One sharded clean over ``n`` ranks: every rank's result read back
-    (identical on every rank), launches > 0 on every rank that holds
-    subints, staged copies as the collectives' order predicts, rank 0's
-    syncs held to the ledger when ``trace``; the run's line printed."""
+def _staged_want(said, backend, sp) -> tuple[int, int]:
+    """The staged copies the collectives' order predicts for a rank's run:
+    none under nccl or where its slice lies inside the rank; else each
+    iteration 2 reads (the template sent on or broadcast, the maps
+    gathered) and 1 + (r > 0) + (r < last) uploads for the rank's index
+    ``r`` in its slice, and with several devices one more of each for the
+    set-up's gather of the weights."""
+    k, iters = said["k"], said["iterations"]
+    if backend != "gloo" or sp <= k or not said["positions"]:
+        return 0, 0
+    r, last = said["positions"][0][1] // k, sp // k - 1
+    return 2 * iters + (k > 1), ((r > 0) + (r < last) + 1) * iters + (k > 1)
+
+
+def _rank_group(work, group, backend, n, k, runs, inputs) -> dict:
+    """One group of ``n`` rank processes, each holding cuda:0 ``k`` times,
+    making its sharded cleans one after another.  For each run: every
+    rank's result read back (identical on every rank), each kernel's
+    launches on every rank the rank's device blocks × its iterations,
+    no peer copy (the devices are logical), the staged copies as the
+    collectives' order predicts, rank 0's syncs held to the ledger when
+    asked; the run's line printed.  Returns per run its result and its
+    launches summed over the ranks."""
     import numpy as np
 
-    out_dir = os.path.join(work, label)
+    out_dir = os.path.join(work, group)
+    archives = sorted({j for run in runs for j in run[4]})
     got, wall = _wait_ranks(_start_ranks(out_dir, n, {
-        "mode": "clean", "backend": backend, "dp": dp, "sp": sp, "trace": trace,
-        "cubes": [inputs[j][0] for j in archives], "weights": [inputs[j][1] for j in archives]}))
-    said = _ranks_ok(label, got)
-    results = []
+        "mode": "clean", "backend": backend, "devices": ["cuda:0"] * k,
+        "runs": [{"label": label, "k": rk, "dp": dp, "sp": sp, "archives": list(arch),
+                  "trace": trace} for label, rk, dp, sp, arch, trace in runs],
+        "cubes": {j: inputs[j][0] for j in archives},
+        "weights": {j: inputs[j][1] for j in archives}}))
+    said = _ranks_ok(group, got)
     for r in range(n):
-        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as z:
-            results.append({k: z[k] for k in z.files})
-        check(said[r]["backend"] == backend and said[r]["device"] == "cuda:0",
-              f"{label} rank {r}: {said[r]['backend']} on {said[r]['device']}")
-        for k in ("test", "w", "loops", "done"):
-            check(np.array_equal(results[r][k], results[0][k], equal_nan=True),
-                  f"{label}: rank {r}'s {k} differs from rank 0's")
-        fit, tmpl = said[r]["launches"]
-        check(fit > 0 and tmpl > 0, f"{label} rank {r}: launches {fit}, {tmpl}")
-        t = said[r]["traffic"]
-        k, iters = said[r]["coords"][1], said[r]["iterations"]
-        staged = backend == "gloo"
-        want = (2 * iters if staged else 0,
-                ((k > 0) + (k < sp - 1) + 1) * iters if staged else 0)
-        check((t["staged_reads"], t["staged_uploads"]) == want,
-              f"{label} rank {r}: staged copies {t['staged_reads']}, {t['staged_uploads']} in "
-              f"{iters} iterations, the collectives' order predicts {want}")
-    if trace:
-        c = said[0]["contract"]
-        check(c["syncs"] == c["reads"] + c["uploads"] == c["want"]["read"] + c["want"]["upload"]
-              and c["reads"] == c["want"]["read"] and not c["f64"],
-              f"{label} rank 0 against the ledger: {c}")
-        log(f"  {label} rank 0 against the route contract: {c['syncs']} syncs = "
-            f"{c['want']['read']} reads + {c['want']['upload']} uploads for {c['units']} "
-            f"(ROUTE_HOST_READS['ranks'])")
-    walls = [s["wall_s"] for s in said]
-    per_iter = [(s["traffic"]["chain_s"] / max(s["iterations"], 1),
-                 s["traffic"]["gathered_bytes"] / max(s["iterations"], 1),
-                 s["traffic"]["staged_bytes"] / max(s["iterations"], 1)) for s in said]
-    log(f"  {label}: backend {backend}, {n} rank(s) on cuda:0 (dp={dp}, sp={sp}), clean wall "
-        f"{max(walls):.4f}s (ranks " + ", ".join(f"{w:.4f}" for w in walls) + "), "
-        f"iterations {[s['iterations'] for s in said]}; per iteration and rank: template "
-        f"chain " + ", ".join(f"{c * 1e3:.3f}" for c, _, _ in per_iter) + " ms, gathered "
-        + ", ".join(f"{g / 1e6:.3f}" for _, g, _ in per_iter) + " MB, staged "
-        + ", ".join(f"{s_ / 1e6:.3f}" for _, _, s_ in per_iter) + " MB; launches "
-        + str([s["launches"] for s in said]) + f"; processes {wall:.1f}s: rank 0's "
-        f"imports {said[0]['import_s']:.1f}s, group join {said[0]['init_s']:.1f}s, ready "
-        f"(kernels, cubes mapped, mesh) at {said[0]['ready_s']:.1f}s, done at "
-        f"{said[0]['end_s']:.1f}s of its own clock")
-    return {"result": results[0], "launches": [sum(s["launches"][i] for s in said)
-                                               for i in (0, 1)]}
+        check(said[r]["backend"] == backend and said[r]["devices"] == ["cuda:0"] * k,
+              f"{group} rank {r}: {said[r]['backend']} on {said[r]['devices']}")
+    out = {}
+    for label, rk, dp, sp, _arch, trace in runs:
+        runs_said = [s["runs"][label] for s in said]
+        results = []
+        for r in range(n):
+            with np.load(os.path.join(out_dir, f"rank{r}_{label}.npz")) as z:
+                results.append({key: z[key] for key in z.files})
+            for key in ("test", "w", "loops", "done"):
+                check(np.array_equal(results[r][key], results[0][key], equal_nan=True),
+                      f"{label}: rank {r}'s {key} differs from rank 0's")
+            rs = runs_said[r]
+            want = [rs["blocks"] * rs["iterations"]] * 2
+            check(rs["launches"] == want,
+                  f"{label} rank {r}: launches {rs['launches']}, want {want} ({rs['blocks']} "
+                  f"device blocks x {rs['iterations']} iterations)")
+            t = rs["traffic"]
+            check(t["peer_copies"] == 0, f"{label} rank {r}: {t['peer_copies']} peer copies")
+            want = _staged_want(rs, backend, sp)
+            check((t["staged_reads"], t["staged_uploads"]) == want,
+                  f"{label} rank {r}: staged copies {t['staged_reads']}, {t['staged_uploads']} "
+                  f"in {rs['iterations']} iterations, the collectives' order predicts {want}")
+        if trace:
+            c = runs_said[0]["contract"]
+            check(c["syncs"] == c["reads"] + c["uploads"] == c["want"]["read"]
+                  + c["want"]["upload"] and c["reads"] == c["want"]["read"] and not c["f64"],
+                  f"{label} rank 0 against the ledger: {c}")
+            log(f"  {label} rank 0 against the route contract: {c['syncs']} syncs = "
+                f"{c['want']['read']} reads + {c['want']['upload']} uploads for {c['units']} "
+                f"(ROUTE_HOST_READS['{c['route']}'])")
+        walls = [rs["wall_s"] for rs in runs_said]
+        per_iter = [(rs["traffic"]["chain_s"] / max(rs["iterations"], 1),
+                     rs["traffic"]["gathered_bytes"] / max(rs["iterations"], 1),
+                     rs["traffic"]["staged_bytes"] / max(rs["iterations"], 1))
+                    for rs in runs_said]
+        log(f"  {label}: backend {backend}, {n} rank(s) on cuda:0, each mesh position of a rank "
+            f"on one of its {rk} logical device(s) (dp={dp}, sp={sp}; positions "
+            f"{[rs['positions'] for rs in runs_said]}), clean wall {max(walls):.4f}s (ranks "
+            + ", ".join(f"{w:.4f}" for w in walls) + f"), iterations "
+            f"{[rs['iterations'] for rs in runs_said]}; per iteration and rank (the set-up's "
+            "gathers included): template chain "
+            + ", ".join(f"{c * 1e3:.3f}" for c, _, _ in per_iter) + " ms, handed and gathered "
+            + ", ".join(f"{g / 1e6:.3f}" for _, g, _ in per_iter) + " MB, staged "
+            + ", ".join(f"{s_ / 1e6:.3f}" for _, _, s_ in per_iter) + " MB; peer copies 0; "
+            "launches " + str([rs["launches"] for rs in runs_said]) + " = device blocks x "
+            "iterations")
+        out[label] = {"result": results[0],
+                      "launches": [sum(rs["launches"][i] for rs in runs_said) for i in (0, 1)]}
+    log(f"  {group} processes {wall:.1f}s: rank 0's imports {said[0]['import_s']:.1f}s, group "
+        f"join {said[0]['init_s']:.1f}s, first run ready (cubes mapped, mesh) at "
+        f"{said[0]['runs'][runs[0][0]]['ready_s']:.1f}s, done at {said[0]['end_s']:.1f}s of "
+        "its own clock")
+    return out
 
 
 def _ranks_refused(started) -> str:
@@ -4145,58 +4230,91 @@ def _ranks_refused(started) -> str:
     return text
 
 
-def _ranks_cli(work, lofar) -> list[int]:
-    """Two gloo ranks each run cli.main over the service phase's three
-    LOFAR .ictb archives: slices [p0, p2] and [p1], r.json.p0 and
-    r.json.p1 and no r.json, clean.log naming the whole invocation, each
-    cleaned archive's weights, loops and converged those of the batch
-    phase's one-process dispatch of the same cubes."""
+def _ranks_cli(work, lofar) -> dict:
+    """Two gloo ranks, each holding cuda:0 twice, run cli.main over the
+    service phase's three LOFAR .ictb archives twice: the directory split
+    (slices [p0, p2] and [p1]), then the same with --sharded_batch, each
+    rank batching its slice on its own in-process mesh over its two
+    logical devices (dp=2).  Each run: r.json.p0 and r.json.p1 and no
+    r.json, clean.log naming the whole invocation, each cleaned archive's
+    weights, loops and converged those of the batch phase's one-process
+    dispatch of the same cubes; with --sharded_batch each rank's launches
+    its device blocks x iterations.  Returns each run's launches by path,
+    summed over the ranks."""
     import numpy as np
+
+    from iterative_cleaner_tpu_torch.config import CleanConfig
 
     out_dir = os.path.join(work, "cli_ranks")
     paths = list(lofar["service_paths"])
     refs = dict(zip(paths, lofar["service_refs"][1:]))
-    got, wall = _wait_ranks(_start_ranks(out_dir, 2, {"mode": "cli", "backend": "gloo",
-                                                     "paths": paths}))
+    got, wall = _wait_ranks(_start_ranks(out_dir, 2, {
+        "mode": "cli", "backend": "gloo", "devices": ["cuda:0", "cuda:0"], "paths": paths}))
     said = _ranks_ok("cli_ranks", got)
     check([s["slice"] for s in said] == [paths[0::2], paths[1::2]],
           f"cli_ranks: slices {[s['slice'] for s in said]}")
-    check(all(s["rc"] == 0 for s in said), f"cli_ranks: rcs {[s['rc'] for s in said]}")
-    check(not os.path.exists(os.path.join(out_dir, "r.json")), "cli_ranks: r.json written")
     nsub, nchan = LOFAR[:2]
-    for r, s in enumerate(said):
-        reps = json.load(open(os.path.join(out_dir, f"r.json.p{r}")))
-        check([rep["path"] for rep in reps] == s["slice"], f"cli_ranks: r.json.p{r} {reps}")
-        for rep in reps:
-            w, loops, done = refs[rep["path"]]
-            check(rep["error"] is None and np.array_equal(
-                _ictb_weights(rep["out_path"], nsub, nchan), w)
-                and (rep["loops"], rep["converged"]) == (loops, done),
-                f"cli_ranks: {rep['path']} differs from the one-process dispatch: {rep}")
-            os.remove(rep["out_path"])
-        check(s["launches"][0] > 0 and s["launches"][1] > 0,
-              f"cli_ranks rank {r}: launches {s['launches']}")
-    lines = open(os.path.join(out_dir, "clean.log")).read().strip().splitlines()
-    check(len(lines) == len(paths) and all(all(p in ln for p in paths) for ln in lines),
-          f"cli_ranks: clean.log {lines}")
-    log(f"  cli_ranks: 2 gloo ranks on cuda:0 each ran cli.main over {len(paths)} LOFAR .ictb "
-        f"archives: slices {[len(s['slice']) for s in said]}, r.json.p0 and r.json.p1 (no "
-        f"r.json), masks, loops and converged the batch phase's, clean.log the whole "
-        f"invocation; CLI walls " + ", ".join(f"{s['wall_s']:.2f}" for s in said)
-        + f" s, processes {wall:.1f}s; launches {[s['launches'] for s in said]}")
-    return [sum(s["launches"][i] for s in said) for i in (0, 1)]
+    launches = {}
+    for name, label in (("split", "cli_ranks"), ("sharded_batch", "cli_ranks_sharded_batch")):
+        run_dir = os.path.join(out_dir, name)
+        check(all(s[name]["rc"] == 0 for s in said),
+              f"{label}: rcs {[s[name]['rc'] for s in said]}")
+        check(not os.path.exists(os.path.join(run_dir, "r.json")), f"{label}: r.json written")
+        for r, s in enumerate(said):
+            reps = json.load(open(os.path.join(run_dir, f"r.json.p{r}")))
+            check([rep["path"] for rep in reps] == s["slice"], f"{label}: r.json.p{r} {reps}")
+            for rep in reps:
+                w, loops, done = refs[rep["path"]]
+                served = f"{rep['out_path']}.{name}"
+                check(rep["error"] is None and np.array_equal(
+                    _ictb_weights(served, nsub, nchan), w)
+                    and (rep["loops"], rep["converged"]) == (loops, done),
+                    f"{label}: {rep['path']} differs from the one-process dispatch: {rep}")
+                os.remove(served)
+            fit, tmpl = s[name]["launches"]
+            check(fit > 0 and tmpl > 0, f"{label} rank {r}: launches {s[name]['launches']}")
+            if name == "sharded_batch":
+                # dp=2 over the rank's two devices: one archive a slice.
+                iters = max(refs[p][1] if refs[p][2] else CleanConfig().max_iter
+                            for p in s["slice"])
+                want = [min(len(s["slice"]), 2) * iters] * 2
+                check(s[name]["launches"] == want and s[name]["meshes"] == [
+                    {"shape": {"dp": 2, "sp": 1, "tp": 1}, "devices": ["cuda:0", "cuda:0"]}],
+                    f"{label} rank {r}: meshes {s[name]['meshes']}, launches "
+                    f"{s[name]['launches']}, want {want} (device blocks x iterations)")
+        lines = open(os.path.join(run_dir, "clean.log")).read().strip().splitlines()
+        check(len(lines) == len(paths) and all(all(p in ln for p in paths) for ln in lines),
+              f"{label}: clean.log {lines}")
+        launches[label] = [sum(s[name]["launches"][i] for s in said) for i in (0, 1)]
+        log(f"  {label}: 2 gloo ranks on cuda:0, each holding it twice, each ran cli.main "
+            f"{'--sharded_batch ' if name == 'sharded_batch' else ''}over {len(paths)} LOFAR "
+            f".ictb archives: slices {[len(s['slice']) for s in said]}, r.json.p0 and "
+            f"r.json.p1 (no r.json), masks, loops and converged the batch phase's, clean.log "
+            f"the whole invocation" + (", each rank's batch on its own dp=2 mesh over its two "
+                                       "logical devices" if name == "sharded_batch" else "")
+            + "; CLI walls " + ", ".join(f"{s[name]['wall_s']:.2f}" for s in said)
+            + f" s; launches {[s[name]['launches'] for s in said]}")
+    log(f"  cli_ranks processes {wall:.1f}s")
+    return launches
 
 
 def phase_ranks(lofar) -> tuple[dict, dict]:
     """The multi-process tier on one card: ranks in child processes on
     cuda:0.  (a) two gloo ranks, ``sharded_clean_single`` of phase 4's
-    cube over sp=2: the oracle's mask, loops and converged, the score
-    drift within 5e-5, rank 0's syncs against the route contract; (b)
-    four gloo ranks, dp=2 x sp=2, ``sharded_clean`` of the batch phase's
-    seeds 42 and 101: the batch phase's masks; (c) one nccl rank, (a) at
-    sp=1 through the device-tensor path; two nccl ranks on one card
-    refused, NCCL's error printed; (d) the directory split through the
-    CLI.  Returns each kernel's launches by path, summed over the ranks."""
+    cube over sp=2, one device a rank: the oracle's mask, loops and
+    converged, the score drift within 5e-5, rank 0's syncs against the
+    route contract; then the same two ranks holding cuda:0 twice each:
+    (b) the cube over 2 ranks x 2 devices, sp=4 (the JAX package's global
+    mesh over two processes), rank 0 against the ``rank_devices`` route
+    contract; (c) the batch phase's seeds 42 and 101 over 2 x 2, dp=2 x
+    sp=2, a whole slice on each rank; (d) four gloo ranks, dp=2 x sp=2,
+    one device each; (e) one nccl rank, (a) at sp=1 through the
+    device-tensor path; two nccl ranks on one card refused, NCCL's error
+    printed; (f) the directory split through the CLI over 2 ranks holding
+    cuda:0 twice, plain and with --sharded_batch.  Every run: the batch
+    phase's masks, loops and converged and its scores bit for bit, archive
+    0 the oracle's.  Returns each kernel's launches by path, summed over
+    the ranks."""
     import numpy as np
     import torch
 
@@ -4207,32 +4325,38 @@ def phase_ranks(lofar) -> tuple[dict, dict]:
     ora = lofar["oracle"]
     refs = lofar["ranks_refs"]
     log(f"ranks: phase 4's cube and the batch phase's seed-101 cube as .npy, memory-mapped "
-        f"by every rank (each uploads its slice only); ranks share cuda:0")
-    fit, tmpl, results = {}, {}, {}
-    for label, backend, n, dp, sp, archives, trace in RANK_RUNS:
-        got = _rank_clean(work, label, backend, n, dp, sp, archives, trace, inputs)
-        fit[label], tmpl[label] = got["launches"]
-        res = results[label] = got["result"]
-        for j, src in enumerate(archives):
-            want_t, want_w, want_loops, want_done = refs[src]
-            check(np.array_equal(res["w"][j], want_w)
-                  and (int(res["loops"][j]), bool(res["done"][j])) == (want_loops, want_done),
-                  f"{label} archive {j}: mask/loops/converged differ from the batch phase's")
-            diff = float(np.nanmax(np.abs(res["test"][j] - want_t)))
-            log(f"  {label} archive {j}: max |score difference| against the one-card batched "
-                f"route {diff:.3e}")
-        check(np.array_equal(res["w"][0], ora.weights)
-              and (int(res["loops"][0]), bool(res["done"][0])) == (ora.loops, ora.converged),
-              f"{label}: archive 0 differs from the oracle")
-        drift = _drift(res["test"][0], ora.test_results)
-        check(drift <= 5e-5, f"{label}: score drift {drift:.3e} against the oracle")
-        log(f"  {label}: archive 0 the oracle's mask, loops and converged; score drift "
-            f"{drift:.3e} (bound 5e-05)")
+        f"by every rank (each uploads its device blocks only); ranks share cuda:0, a rank "
+        f"holding two devices holds it twice (logical devices)")
+    fit, tmpl = {}, {}
+    for group, backend, n, k, runs in RANK_RUNS:
+        got = _rank_group(work, group, backend, n, k, runs, inputs)
+        for label, _rk, _dp, _sp, archives, _trace in runs:
+            fit[label], tmpl[label] = got[label]["launches"]
+            res = got[label]["result"]
+            for j, src in enumerate(archives):
+                want_t, want_w, want_loops, want_done = refs[src]
+                check(np.array_equal(res["w"][j], want_w)
+                      and (int(res["loops"][j]), bool(res["done"][j])) == (want_loops, want_done),
+                      f"{label} archive {j}: mask/loops/converged differ from the batch phase's")
+                diff = float(np.nanmax(np.abs(res["test"][j] - want_t)))
+                check(np.array_equal(res["test"][j], want_t, equal_nan=True),
+                      f"{label} archive {j}: scores differ from the one-card batched route "
+                      f"by up to {diff:.3e}")
+                log(f"  {label} archive {j}: max |score difference| against the one-card "
+                    f"batched route {diff:.3e}")
+            check(np.array_equal(res["w"][0], ora.weights)
+                  and (int(res["loops"][0]), bool(res["done"][0])) == (ora.loops, ora.converged),
+                  f"{label}: archive 0 differs from the oracle")
+            drift = _drift(res["test"][0], ora.test_results)
+            check(drift <= 5e-5, f"{label}: score drift {drift:.3e} against the oracle")
+            log(f"  {label}: archive 0 the oracle's mask, loops and converged; score drift "
+                f"{drift:.3e} (bound 5e-05)")
     # The refusal beside the CLI run: it fails at its first collective,
     # within seconds of its start, and the phase does not wait for it alone.
     refused = _start_ranks(os.path.join(work, "nccl_refused"), 2,
-                           {"mode": "nccl_refused", "backend": "nccl"})
-    fit["cli_ranks"], tmpl["cli_ranks"] = _ranks_cli(work, lofar)
+                           {"mode": "nccl_refused", "backend": "nccl", "devices": ["cuda:0"]})
+    for label, (f, t) in _ranks_cli(work, lofar).items():
+        fit[label], tmpl[label] = f, t
     lofar["nccl_refused"] = _ranks_refused(refused)
     for p in inputs.values():
         for f in p:

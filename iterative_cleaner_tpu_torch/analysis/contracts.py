@@ -90,7 +90,7 @@ UNITS = {
     "dense pass": "each streamed template pass",
     "sparse update": "each template advanced by the sparse update",
     "archive": "each archive a rank holds",
-    "archive block": "each archive's subint block on a device of an in-process mesh",
+    "archive block": "each archive's subint block on a device of this process's in a mesh",
     "staged read": "each collective operand parallel/collectives.py copied to the host",
     "staged upload": "each collective result parallel/collectives.py copied to the card",
 }
@@ -206,6 +206,32 @@ ROUTE_HOST_READS: dict[str, dict[str, tuple[HostReads, ...]]] = {
             HostReads("upload", 1, "staged upload",
                       "a collective's result back to the card under gloo (the "
                       "template received or broadcast, the gathered maps)"),),
+    },
+    "rank_devices": {
+        "sharded_clean": (
+            HostReads("upload", 2, "archive block",
+                      "the block's subints of the cube and its rows of the "
+                      "original weights, from the host to the rank's device "
+                      "(shard_batch; the rank's first device of a slice "
+                      "assembles the whole weights from its blocks, and from "
+                      "the slice's other ranks where it spans them)"),
+            HostReads("read", 1, "continuing iteration",
+                      "active.any() over the flags of the rank's slices, met "
+                      "on its first device: the same on every rank of a slice "
+                      "that spans ranks, from the same gathered maps (the last "
+                      "allowed iteration does not ask)"),
+            HostReads("read", 1, "run",
+                      "every slice's results to the host (gather_results: "
+                      "under gloo before the gather, under nccl after it)"),
+            HostReads("read", 1, "staged read",
+                      "a collective's operand to the host under gloo with the "
+                      "rank on a card, where a slice spans ranks (the set-up's "
+                      "weights and each iteration's maps gathered, the "
+                      "template sent on or broadcast)"),
+            HostReads("upload", 1, "staged upload",
+                      "a collective's result back to the card under gloo (the "
+                      "gathered weights and maps, the template received or "
+                      "broadcast)"),),
     },
 }
 
@@ -525,18 +551,21 @@ def _entry_points(D, w0, Db, w0b, device, block):
         n = int(out[2][0]) if out[3][0] else max_iter
         return {"run": 1, "archive block": 2, "continuing iteration": min(n, max_iter - 1)}
 
-    def ranks(trace, kernel):
-        from iterative_cleaner_tpu_torch.parallel import collectives
-        from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean
+    def ranks(k):
+        def run(trace, kernel):
+            from iterative_cleaner_tpu_torch.parallel import collectives
+            from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean
 
-        with _rank_group(device) as mesh:
-            collectives.traffic.reset()
-            with trace:
-                out = sharded_clean([D], [w0], cfg.replace(kernel=kernel), mesh)
-        n = int(out[2][0]) if out[3][0] else max_iter
-        return {"run": 1, "archive": 1, "continuing iteration": min(n, max_iter - 1),
-                "staged read": collectives.traffic.staged_reads,
-                "staged upload": collectives.traffic.staged_uploads}
+            with _rank_group(device, k) as mesh:
+                collectives.traffic.reset()
+                with trace:
+                    out = sharded_clean([D], [w0], cfg.replace(kernel=kernel), mesh)
+            n = int(out[2][0]) if out[3][0] else max_iter
+            return {"run": 1, "archive": 1, "archive block": k,
+                    "continuing iteration": min(n, max_iter - 1),
+                    "staged read": collectives.traffic.staged_reads,
+                    "staged upload": collectives.traffic.staged_uploads}
+        return run
 
     return [
         ("stepwise", "clean_step", one_call(
@@ -559,16 +588,19 @@ def _entry_points(D, w0, Db, w0b, device, block):
             lambda c: ChunkedTorchCleaner(D, w0, c, block=block, device=device), True)),
         ("batch", "batched_fused_clean", batch),
         ("local", "sharded_clean", local),
-        ("ranks", "sharded_clean", ranks),
+        ("ranks", "sharded_clean", ranks(1)),
+        ("rank_devices", "sharded_clean", ranks(2)),
     ]
 
 
 @contextlib.contextmanager
-def _rank_group(device):
-    """A mesh over the ranks of the default process group with this rank on
-    ``device``: the process's own group, else a one-rank ``gloo`` group made
-    for the run (an in-memory store) and destroyed after it.  Under gloo on
-    a card the collectives stage through the host."""
+def _rank_group(device, k=1):
+    """A mesh over the ranks of the default process group with this rank
+    holding ``device`` ``k`` times (with ``k`` 2, one ``sp=2`` slice on
+    the rank's two logical devices): the process's own group, else a
+    one-rank ``gloo`` group made for the run (an in-memory store) and
+    destroyed after it.  Under gloo on a card the collectives stage
+    through the host."""
     import torch
     import torch.distributed as dist
 
@@ -578,7 +610,8 @@ def _rank_group(device):
     if made:
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     try:
-        yield make_mesh(group=dist.group.WORLD, devices=[torch.device(device)])
+        yield make_mesh(*((k, 1, k) if k > 1 else ()), group=dist.group.WORLD,
+                        devices=[torch.device(device)] * k)
     finally:
         if made:
             dist.destroy_process_group()

@@ -26,8 +26,9 @@ elements.
 
 One oversized archive over several devices: :func:`single_archive_mesh`
 (``:101-131`` of the JAX module) gives its subints to the ``sp`` devices
-of a one-slice mesh — this process's devices (:func:`default_devices`),
-or the ranks of a process group — which
+of a one-slice mesh — this process's devices (:func:`default_devices`,
+a rank's own under a process group), or the ranks of a process group ×
+their devices — which
 ``parallel/sharded.sharded_clean_single`` cleans; the devices its peel
 cannot use stay out, and none goes to ``tp``.  :func:`maybe_clean_sharded`
 (``:158-204``) is ``core/cleaner.clean_cube``'s automatic reroute: when
@@ -82,20 +83,22 @@ def device_memory_bytes(device=None) -> int | None:
 
 def default_devices(device="cuda") -> list[torch.device]:
     """The devices a clean on ``device`` may spread over (the JAX module's
-    ``:37-56``): for ``cuda`` every card of this process
-    (``parallel/mesh.local_devices``), or this rank's card under a process
-    group (``parallel/mesh.rank_device``: a rank holds one card of a mesh);
-    for ``cuda:N`` that card alone; for ``cpu``, ``[cpu]``."""
+    ``:37-56``, ``jax.local_devices()``): for ``cuda`` every card of this
+    process (``parallel/mesh.local_devices``), or under a process group
+    the rank's devices (``parallel/mesh.rank_devices``), which an
+    unindexed name of their type also gives; for ``cuda:N`` that card
+    alone; otherwise ``[device]`` (``[cpu]``)."""
     import torch.distributed as dist
 
-    from iterative_cleaner_tpu_torch.parallel.mesh import local_devices, rank_device
+    from iterative_cleaner_tpu_torch.parallel.mesh import local_devices, rank_devices
 
     dev = torch.device(device)
-    if dev.type != "cuda" or dev.index is not None:
+    if dev.index is not None:
         return [dev]
     if dist.is_available() and dist.is_initialized():
-        return [rank_device()]
-    return local_devices()
+        mine = rank_devices()
+        return mine if dev.type in ("cuda", mine[0].type) else [dev]
+    return local_devices() if dev.type == "cuda" else [dev]
 
 
 def _route(use_kernel: bool) -> str:
@@ -248,8 +251,9 @@ def single_archive_mesh(shape: tuple[int, ...], n_devices: int | None = None, de
     """A (dp=1, sp) mesh for one archive of ``shape``, with ``sp`` =
     :func:`subint_ranks` of ``n_devices``: over the first ``sp`` of
     ``devices`` (this process's; default :func:`default_devices`), or,
-    with no ``devices`` and a default process group initialized, over its
-    first ``sp`` ranks (``n_devices`` defaults to the group's size; every
+    with no ``devices`` and a default process group initialized, over the
+    first ``sp`` positions of its ranks × their devices (``n_devices``
+    defaults to the group's size times the rank's device count; every
     rank of the group calls it, since ``make_mesh`` makes process groups,
     and the ranks left out do no device work and receive the result).
     The devices or ranks the peel cannot use stay out of the mesh.  None
@@ -257,13 +261,14 @@ def single_archive_mesh(shape: tuple[int, ...], n_devices: int | None = None, de
     too)."""
     import torch.distributed as dist
 
-    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh, rank_devices
 
     over_ranks = devices is None and dist.is_available() and dist.is_initialized()
     if not over_ranks and devices is None:
         devices = default_devices()
     if n_devices is None:
-        n_devices = dist.get_world_size() if over_ranks else len(devices)
+        n_devices = (dist.get_world_size() * len(rank_devices()) if over_ranks
+                     else len(devices))
     sp = subint_ranks(int(shape[0]), n_devices)
     if sp == 1:
         return None

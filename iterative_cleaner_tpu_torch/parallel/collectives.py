@@ -4,8 +4,7 @@ tensor from one device of a mesh to another.
 No JAX counterpart: there GSPMD inserts the collectives from the input
 shardings (``iterative_cleaner_tpu/parallel/sharded.py:1-13``).  A device
 of a mesh (``parallel/mesh.py``) holds a contiguous subint block of its
-``dp`` slice's archives, and each iteration the slice's ``sp`` devices
-make two exchanges, chosen by ``mesh.spans_ranks``:
+``dp`` slice's archives, and each iteration a slice makes two exchanges:
 
 - the template in the oracle's order: block ``k`` continues the running
   ``(a, nbin)`` sum of block ``k-1`` over its subints
@@ -13,13 +12,17 @@ make two exchanges, chosen by ``mesh.spans_ranks``:
   continues block after block), and the finished template goes to every
   block.  The hops are serial, so the chain's floor is paid once across
   the devices, as on one card; an all-reduce would sum in another order
-  and drift the scores.  Over ranks :func:`continue_template` (send,
-  receive, broadcast); in one process :func:`chain_template`;
+  and drift the scores.  Along a process's devices :func:`chain_template`;
+  over a slice that spans ranks :func:`continue_template`, which runs the
+  chain along the rank's devices between a receive from the rank before
+  and a send to the rank after, then a broadcast from the slice's last
+  rank;
 - the four ``(a, rows, nchan)`` maps gathered along subints in ``sp``
-  order: over ranks :func:`all_gather_maps`, to every rank of the slice;
-  in one process :func:`gather_maps`, to the slice's first device, where
-  the scalers run, and :func:`scatter_rows` hands each block its rows of
-  the new weights.
+  order: :func:`gather_maps` concatenates a process's blocks on its first
+  device of the slice, where the scalers run, and over ranks
+  :func:`all_gather_maps` then gathers the ranks' spans to every rank of
+  the slice; :func:`scatter_rows` hands each block its rows of the new
+  weights.
 
 At the end, over ranks, every rank of the mesh's group calls
 :func:`gather_results`, which hands each ``dp`` slice's results to every
@@ -33,13 +36,14 @@ tensor over without a copy.  :data:`traffic` counts every hop's bytes in
 ``gathered_bytes`` either way (what distinct cards would move) and the
 hops that copied in ``peer_copies``.  Nothing is staged through the host.
 
-Under ``gloo`` every collective takes host tensors: a device operand is
-copied to the host and the result back, here and nowhere else, and
-:data:`traffic` counts the copies.  ``gloo``'s support for CUDA tensors
-differs by operation and by torch build, so it is never handed one.
-Under ``nccl`` device tensors pass as they are.  Host buffers are made
-from numpy arrays, so the route contracts (``analysis/contracts.py``) see
-them as host data.
+Between ranks, under ``gloo`` every collective takes host tensors: a
+device operand is copied to the host and the result back, here and
+nowhere else, and :data:`traffic` counts the copies (``staged_*``).
+``gloo``'s support for CUDA tensors differs by operation and by torch
+build, so it is never handed one.  Under ``nccl`` device tensors pass as
+they are.  Host buffers are made from numpy arrays, so the route
+contracts (``analysis/contracts.py``) see them as host data.  A rank's
+collectives take tensors on its first device of the slice.
 """
 
 from __future__ import annotations
@@ -123,42 +127,48 @@ def _result(buf, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(buf).to(like.device)
 
 
-def continue_template(D: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
-    """The ``(a, nbin)`` templates of this ``dp`` slice's archives, from
-    this rank's block ``D (a, rows, nchan, nbin)`` under weights ``w (a,
-    rows, nchan)``, continued from the ``sp`` rank before and passed to the
-    one after; every rank of the group returns the finished templates, bit
-    for bit the one-card build over all subints."""
+def continue_template(blocks, weights, mesh) -> list[torch.Tensor]:
+    """The ``(a, nbin)`` templates of this rank's ``dp`` slice, from its
+    blocks ``D_j (a, rows_j, nchan, nbin)`` under weights ``w_j (a,
+    rows_j, nchan)`` (in ``sp`` order, each on its device; the first on
+    the device the rank's collectives use): the running sum received from
+    the slice's rank before, continued along the blocks, passed to the
+    rank after.  Every rank of the group returns the finished templates on
+    each block's device, bit for bit the one-card build over all
+    subints."""
     t0 = time.perf_counter()
     peers = mesh.sp_ranks(mesh.coords[0])
-    k = mesh.coords[1]
-    shape = (D.shape[0], D.shape[-1])
+    r = peers.index(dist.get_rank())
+    home = blocks[0]
+    shape = (home.shape[0], home.shape[-1])
     init = None
-    if k > 0:
-        buf = _buffer(D, shape, mesh)
-        dist.recv(_wire(buf), src=peers[k - 1], group=mesh.sp_group)
+    if r > 0:
+        buf = _buffer(home, shape, mesh)
+        dist.recv(_wire(buf), src=peers[r - 1], group=mesh.sp_group)
         traffic.gathered_bytes += buf.nbytes
-        init = _result(buf, D)
-    T = build_template(D, w, init=init)
-    if k < len(peers) - 1:
-        dist.send(_operand(T, mesh), dst=peers[k + 1], group=mesh.sp_group)
-    if k == len(peers) - 1:
+        init = _result(buf, home)
+    T = _chain(blocks, weights, init)
+    if len(blocks) > 1:
+        T = hand(T, home.device)
+    if r < len(peers) - 1:
+        dist.send(_operand(T, mesh), dst=peers[r + 1], group=mesh.sp_group)
+    if r == len(peers) - 1:
         dist.broadcast(_operand(T, mesh), src=peers[-1], group=mesh.sp_group)
     else:
-        buf = _buffer(D, shape, mesh)
+        buf = _buffer(home, shape, mesh)
         dist.broadcast(_wire(buf), src=peers[-1], group=mesh.sp_group)
         traffic.gathered_bytes += buf.nbytes
-        T = _result(buf, D)
+        T = _result(buf, home)
     traffic.chain_s += time.perf_counter() - t0
-    return T
+    return [T] + [hand(T, D.device) for D in blocks[1:]]
 
 
 def all_gather_maps(maps, mesh, bounds) -> tuple[torch.Tensor, ...]:
-    """The four ``(a, rows, nchan)`` maps of this rank's block, gathered
-    along subints in ``sp`` order to every rank of the group: four
-    ``(a, nsub, nchan)`` maps.  ``bounds`` are the ``sp`` blocks' ``[lo,
-    hi)`` (blocks may differ by one subint; each is padded to the longest
-    for the gather and trimmed after)."""
+    """The ``(a, rows, nchan)`` maps of this rank's span of subints,
+    gathered along subints in ``sp`` order to every rank of its ``dp``
+    slice: ``(a, nsub, nchan)`` maps.  ``bounds`` are the slice's ranks'
+    spans ``[lo, hi)`` (they may differ in length; each is padded to the
+    longest for the gather and trimmed after)."""
     local = torch.stack(tuple(maps))                 # (4, a, rows, nchan)
     longest = max(hi - lo for lo, hi in bounds)
     rows = local.shape[2]
@@ -204,6 +214,16 @@ def hand(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _chain(blocks, weights, init=None) -> torch.Tensor:
+    """The running ``(a, nbin)`` sum continued from ``init`` along the
+    blocks in order, each continuing the one before, handed to its
+    device; on the last block's device."""
+    T = build_template(blocks[0], weights[0], init=init)
+    for D, w in zip(blocks[1:], weights[1:]):
+        T = build_template(D, w, init=hand(T, D.device))
+    return T
+
+
 def chain_template(blocks, weights) -> list[torch.Tensor]:
     """The ``(a, nbin)`` templates of a ``dp`` slice of an in-process mesh
     from its ``sp`` devices' blocks ``D_k (a, rows_k, nchan, nbin)`` under
@@ -211,17 +231,18 @@ def chain_template(blocks, weights) -> list[torch.Tensor]:
     continues block ``k-1``'s sum, handed to its device.  Returns the
     finished templates on each block's device, bit for bit the one-card
     build over all subints."""
-    T = None
-    for D, w in zip(blocks, weights):
-        T = build_template(D, w, init=None if T is None else hand(T, D.device))
+    T = _chain(blocks, weights)
     last = len(blocks) - 1
     return [T if k == last else hand(T, D.device) for k, D in enumerate(blocks)]
 
 
 def gather_maps(maps, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The four ``(a, rows_k, nchan)`` maps of each block of a ``dp``
-    slice (``maps[k]``, in ``sp`` order) concatenated along subints on
-    ``device``, the slice's first: four ``(a, nsub, nchan)`` maps."""
+    """The ``(a, rows_k, nchan)`` maps of each block of a process's part
+    of a ``dp`` slice (``maps[k]``, in ``sp`` order) concatenated along
+    subints on ``device``, the first block's: in one process the slice's
+    whole ``(a, nsub, nchan)`` maps, over ranks this rank's span."""
+    if len(maps) == 1:
+        return tuple(maps[0])
     parts = [m if k == 0 else tuple(hand(x, device) for x in m) for k, m in enumerate(maps)]
     return tuple(torch.cat(ms, dim=1) for ms in zip(*parts))
 

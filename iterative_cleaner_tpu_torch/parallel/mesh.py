@@ -1,5 +1,5 @@
 """Device mesh for the cleaner's parallel axes: the devices of this
-process, or the ranks of a process group.
+process, or the ranks of a process group and their devices.
 
 Port of ``iterative_cleaner_tpu/parallel/mesh.py:30-89``.  The JAX package
 maps its parallelism onto a ('dp', 'sp', 'tp') mesh: archives over ``dp``,
@@ -18,13 +18,18 @@ collectives.  The port has two kinds of mesh:
   speed: its devices share one card's memory and one stream.  A mesh of
   one device runs the directory batch as a leading archive axis
   (``parallel/sharded.py``);
-- over a group's ranks, one device per rank: the ``dp`` slices take
-  archives round-robin and the ``sp`` ranks of a slice take contiguous
-  subint blocks; ``parallel/collectives.py`` carries what crosses ranks.
-  Ranks may share one card under ``gloo`` (NCCL refuses two ranks on one
-  device); the same code runs NCCL across distinct cards.  A rank that
-  holds several cards (the JAX package's per-host ``local_mesh`` under a
-  process group) is not ported (ROADMAP.md);
+- over a group's ranks and their devices, as a JAX mesh spans the chips
+  of several processes: every rank holds the same ``k`` devices
+  (:func:`rank_devices`, by default a block of the host's cards), the
+  mesh's positions are numbered ``group_rank * k + j`` and laid out
+  ``dp``-major, as ``np.asarray(jax.devices()).reshape(dp, sp, tp)`` is.
+  The ``dp`` slices take archives round-robin and the ``sp`` positions of
+  a slice take contiguous subint blocks.  A slice lies inside one rank
+  (``k % sp == 0``: it runs as on a mesh over this process's devices) or
+  covers whole ranks (``sp % k == 0``: ``parallel/collectives.py``
+  carries what crosses ranks); any other split raises.  Ranks may share
+  one card under ``gloo`` (NCCL refuses two ranks on one device); the
+  same code runs NCCL across distinct cards;
 - ``tp`` (channels) raises on both: the template is one chain of
   dependent adds in the oracle's (subint, channel) order, which a channel
   split would cut into ``nsub * tp`` pieces on alternating devices.
@@ -36,7 +41,8 @@ collectives.  The port has two kinds of mesh:
 
 :func:`initialize_distributed` is the ranks' entry: it joins the group
 from the ``env://`` variables ``torchrun`` sets and records this rank's
-device, which :func:`make_mesh` and ``parallel/multihost.local_mesh`` use.
+devices, which :func:`make_mesh`, ``parallel/autoshard.default_devices``
+and ``parallel/multihost.local_mesh`` use.
 """
 
 from __future__ import annotations
@@ -55,9 +61,9 @@ AXES = ("dp", "sp", "tp")
 #: hanging them.
 DEFAULT_GROUP_TIMEOUT_S = 300.0
 
-#: This process's device and its group's timeout, as
+#: This process's devices and its group's timeout, as
 #: :func:`initialize_distributed` set them.
-_rank_device: torch.device | None = None
+_rank_devices: tuple[torch.device, ...] | None = None
 _group_timeout_s: float = DEFAULT_GROUP_TIMEOUT_S
 
 
@@ -99,11 +105,15 @@ class Mesh:
 
     A mesh over ranks also holds its process ``group`` and its
     ``backend``, the group's ranks (``group_ranks``, global ranks in group
-    order; the mesh is the first ``dp*sp`` of them, ``dp``-major),
-    this rank's ``(dp, sp)`` ``coords`` (None for a rank of the group left
-    out of the mesh: it does no device work and receives the result) and
-    its ``sp_group``, the ranks of its ``dp`` slice.  ``devices`` is this
-    process's one device."""
+    order) and this rank's devices (``devices``, the same count ``k`` on
+    every rank).  Its positions are numbered ``group_index * k + j``, the
+    mesh is the first ``dp*sp`` of them, ``dp``-major.  ``positions`` are
+    the ``(dp, sp)`` coordinates of this rank's devices in the mesh, in
+    device order (fewer than ``k`` on a rank the mesh's end cuts; none on
+    a rank left out of the mesh: it does no device work and receives the
+    result), ``coords`` the first of them, and ``sp_group`` the process
+    group of the ranks of this rank's ``dp`` slice when that slice spans
+    ranks (``sp > k``), else None."""
 
     devices: tuple[torch.device, ...]
     shape: dict
@@ -112,11 +122,15 @@ class Mesh:
     group_ranks: tuple[int, ...] = ()
     coords: tuple[int, int] | None = None
     sp_group: object = None
+    positions: tuple[tuple[int, int], ...] = ()
+
+    def __post_init__(self):
+        if self.coords is not None and not self.positions:
+            object.__setattr__(self, "positions", (tuple(self.coords),))
 
     @property
     def device(self) -> torch.device:
-        """This process's device; on a mesh over this process's devices,
-        the first (where the results meet)."""
+        """This process's first device (where the results meet)."""
         return self.devices[0]
 
     @property
@@ -140,22 +154,42 @@ class Mesh:
     @property
     def ranks(self) -> tuple[int, ...]:
         """The global ranks in the mesh, ``dp``-major."""
-        return self.group_ranks[:self.shape["dp"] * self.shape["sp"]]
+        return self.group_ranks[:-(-self.shape["dp"] * self.shape["sp"] // len(self.devices))]
 
     def sp_ranks(self, dp_index: int) -> tuple[int, ...]:
-        """The global ranks of ``dp`` slice ``dp_index``, in ``sp`` order."""
-        sp = self.shape["sp"]
-        return self.ranks[dp_index * sp:(dp_index + 1) * sp]
+        """The global ranks of ``dp`` slice ``dp_index``, in ``sp`` order
+        (one rank for a slice inside a rank)."""
+        sp, k = self.shape["sp"], len(self.devices)
+        return self.group_ranks[dp_index * sp // k:((dp_index + 1) * sp - 1) // k + 1]
+
+
+def rank_devices() -> list[torch.device]:
+    """This process's devices: those :func:`initialize_distributed`
+    gave the rank, else ``[cuda]`` (raises without a card)."""
+    if _rank_devices is not None:
+        return list(_rank_devices)
+    from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+
+    return [resolve_device("cuda")]
 
 
 def rank_device() -> torch.device:
-    """This process's device: the one :func:`initialize_distributed`
-    chose, else ``cuda`` (raises without a card)."""
-    if _rank_device is not None:
-        return _rank_device
-    from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+    """This process's first device (:func:`rank_devices`)."""
+    return rank_devices()[0]
 
-    return resolve_device("cuda")
+
+def rank_cards(local_rank: int, local_world: int | None, n_cards: int) -> list[int]:
+    """The indices of the cards a rank takes by default: the contiguous
+    block ``[r*k, (r+1)*k)`` with ``r = local_rank`` and ``k = n_cards //
+    local_world`` (``LOCAL_WORLD_SIZE`` ranks on the host share its
+    ``n_cards`` cards; empty where there are fewer cards than ranks);
+    without ``local_world``, card ``local_rank`` alone."""
+    if local_world is None:
+        return [int(local_rank)]
+    if not 0 <= local_rank < local_world:
+        raise ValueError(f"LOCAL_RANK {local_rank} not in [0, LOCAL_WORLD_SIZE {local_world})")
+    k = int(n_cards) // int(local_world)
+    return list(range(local_rank * k, (local_rank + 1) * k))
 
 
 def local_devices() -> list[torch.device]:
@@ -211,13 +245,16 @@ def make_mesh(n_devices: int | None = None, dp: int | None = None, sp: int | Non
     and ``tp`` must be 1.
 
     Over ranks when ``group`` is given, or when ``devices`` is not and a
-    default process group is initialized: the first ``n_devices`` ranks of
-    the group, this rank on ``devices[0]`` or :func:`rank_device`.  Every
-    rank of the default group must call it, in the same order as its other
-    group calls: it makes one ``sp`` group per ``dp`` slice.  Otherwise
-    over ``devices`` of this process, by default :func:`local_devices`
-    (``devices=["cpu"]`` for the CPU); all of one type, a device may be
-    named more than once (logical devices)."""
+    default process group is initialized: the first ``n_devices``
+    positions of the group's ranks × their devices, this rank holding
+    ``devices`` or :func:`rank_devices` (the same count on every rank; a
+    slice inside one rank or over whole ranks).  Every rank of the group
+    must call it, in the same order as its other group calls: it gathers
+    the ranks' device counts and makes one ``sp`` group per ``dp`` slice
+    that spans ranks.  Otherwise over ``devices`` of this process, by
+    default :func:`local_devices` (``devices=["cpu"]`` for the CPU); all
+    of one type, a device may be named more than once (logical
+    devices)."""
     if group is None and devices is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     if group is not None:
@@ -227,73 +264,119 @@ def make_mesh(n_devices: int | None = None, dp: int | None = None, sp: int | Non
     if not 1 <= n <= len(devices):
         raise ValueError(f"n_devices = {n} with {len(devices)} devices given")
     devices = devices[:n]
+    _one_type(devices)
+    return Mesh(devices=devices, shape=dict(zip(AXES, _extents(n, dp, sp, tp))))
+
+
+def _one_type(devices) -> None:
     if len({d.type for d in devices}) > 1:
         raise ValueError(f"a mesh's devices are of one type, not {[str(d) for d in devices]}")
-    return Mesh(devices=devices, shape=dict(zip(AXES, _extents(n, dp, sp, tp))))
 
 
 def _rank_mesh(n_devices, dp, sp, tp, devices, group) -> Mesh:
     group_ranks = tuple(dist.get_process_group_ranks(group))
-    n = len(group_ranks) if n_devices is None else int(n_devices)
-    if not 1 <= n <= len(group_ranks):
-        raise ValueError(f"n_devices = {n} with {len(group_ranks)} ranks in the group")
-    dp, sp, tp = _extents(n, dp, sp, tp)
-    device = torch.device(devices[0]) if devices else rank_device()
+    devices = tuple(_indexed(d) for d in (rank_devices() if devices is None else devices))
+    if not devices:
+        raise ValueError("a rank of a mesh holds at least one device")
+    _one_type(devices)
     backend = dist.get_backend(group)
-    if backend == "nccl" and device.type != "cuda":
-        raise ValueError(f"an nccl group runs on CUDA devices, not {device}")
-    me = dist.get_rank()
-    coords, sp_group = None, None
-    timeout = datetime.timedelta(seconds=_group_timeout_s)
-    for i in range(dp):
-        members = list(group_ranks[i * sp:(i + 1) * sp])
-        g = dist.new_group(members, timeout=timeout, backend=backend)
-        if me in members:
-            coords, sp_group = (i, members.index(me)), g
-    return Mesh(devices=(device,), shape=dict(zip(AXES, (dp, sp, tp))), group=group,
-                backend=backend, group_ranks=group_ranks, coords=coords, sp_group=sp_group)
+    if backend == "nccl" and devices[0].type != "cuda":
+        raise ValueError(f"an nccl group runs on CUDA devices, not {devices[0]}")
+    k = len(devices)
+    counts = [None] * len(group_ranks)
+    dist.all_gather_object(counts, k, group=group)
+    if len(set(counts)) > 1:
+        raise ValueError(f"the group's ranks hold {counts} devices: a mesh over ranks needs "
+                         "the same count on every rank")
+    n = len(group_ranks) * k if n_devices is None else int(n_devices)
+    if not 1 <= n <= len(group_ranks) * k:
+        raise ValueError(f"n_devices = {n} with {len(group_ranks)} ranks of {k} device(s) "
+                         "in the group")
+    dp, sp, tp = _extents(n, dp, sp, tp)
+    if k % sp and sp % k:
+        raise ValueError(
+            f"sp={sp} over ranks of {k} devices: a dp slice lies inside one rank (k % sp == "
+            "0) or covers whole ranks (sp % k == 0); this split would give one rank part of "
+            "two slices that span ranks, whose template chains and gathers would then "
+            "interleave on its one process")
+    me = group_ranks.index(dist.get_rank())
+    positions = tuple((p // sp, p % sp) for p in range(me * k, min((me + 1) * k, n)))
+    sp_group = None
+    if sp > k:
+        per = sp // k
+        timeout = datetime.timedelta(seconds=_group_timeout_s)
+        for i in range(dp):
+            members = list(group_ranks[i * per:(i + 1) * per])
+            g = dist.new_group(members, timeout=timeout, backend=backend)
+            if dist.get_rank() in members:
+                sp_group = g
+    return Mesh(devices=devices, shape=dict(zip(AXES, (dp, sp, tp))), group=group,
+                backend=backend, group_ranks=group_ranks,
+                coords=positions[0] if positions else None, sp_group=sp_group,
+                positions=positions)
 
 
-def initialize_distributed(backend: str | None = None, device=None,
+def initialize_distributed(backend: str | None = None, device=None, devices=None,
                            timeout_s: float = DEFAULT_GROUP_TIMEOUT_S) -> torch.device:
     """Join the default process group from ``RANK``, ``WORLD_SIZE``,
     ``MASTER_ADDR`` and ``MASTER_PORT`` (``env://``, as ``torchrun`` sets
     them), with a timeout of ``timeout_s`` seconds on the group.  Call once
-    per process before any device use.  Returns this rank's device, and
-    records it and the timeout for :func:`make_mesh` (its ``sp`` groups
-    take the same timeout).
+    per process before any device use.  Returns this rank's first device,
+    and records its devices (:func:`rank_devices`) and the timeout for
+    :func:`make_mesh` (its ``sp`` groups take the same timeout).
 
-    ``device`` defaults to ``cuda:{LOCAL_RANK}`` (``LOCAL_RANK`` defaults to
-    ``RANK``); a rank whose card does not exist raises.  Ranks that share
-    one card say so with ``device="cuda:0"`` (under ``gloo``: NCCL refuses
-    two ranks on one device).  ``backend`` defaults to ``nccl`` for a CUDA
-    device and ``gloo`` for ``cpu``; it is never swapped for another."""
+    The rank holds ``devices`` (a list; a card named more than once gives
+    logical devices), or ``[device]``.  By default it takes the block of
+    cards :func:`rank_cards` gives ``LOCAL_RANK`` (default ``RANK``) of
+    ``LOCAL_WORLD_SIZE`` ranks on this host: one card per rank when the
+    counts are equal, ``cuda:{LOCAL_RANK}`` without ``LOCAL_WORLD_SIZE``.
+    A card that does not exist raises; nothing falls back to the CPU.
+    Ranks that share one card say so with ``device="cuda:0"`` (under
+    ``gloo``: NCCL refuses two ranks on one device).  ``backend`` defaults
+    to ``nccl`` for CUDA devices and ``gloo`` for ``cpu``; it is never
+    swapped for another."""
     missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
                if k not in os.environ]
     if missing:
         raise RuntimeError(f"initialize_distributed reads {', '.join(missing)} from the "
                            "environment (env://, as torchrun sets them)")
+    if device is not None and devices is not None:
+        raise ValueError("pass device= or devices=, not both")
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    if device is None:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
-    device = torch.device(device)
-    if device.type == "cuda":
+    named = [device] if device is not None else devices
+    if named is not None:
+        named = [torch.device(d) for d in named]
+        if not named or len({d.type for d in named}) > 1:
+            raise ValueError(f"a rank holds one or more devices of one type, not "
+                             f"{[str(d) for d in named]}")
+    if named is None or named[0].type == "cuda":
         from iterative_cleaner_tpu_torch.utils.device_probe import init_watchdog
 
         with init_watchdog("initialize_distributed"):
             n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-            index = 0 if device.index is None else device.index
-            if index >= n_cards:
-                raise RuntimeError(
-                    f"rank {rank}: {device} does not exist (this host has {n_cards} CUDA "
-                    "device(s)); ranks that share a card pass device='cuda:0' explicitly")
-            device = torch.device("cuda", index)
-            torch.cuda.set_device(device)
-    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
-    if backend == "nccl" and device.type != "cuda":
-        raise ValueError(f"nccl runs on CUDA devices, not {device}")
+            if named is None:
+                local = int(os.environ.get("LOCAL_RANK", rank))
+                local_world = os.environ.get("LOCAL_WORLD_SIZE")
+                cards = rank_cards(local, None if local_world is None else int(local_world),
+                                   n_cards)
+                if not cards:
+                    raise RuntimeError(
+                        f"rank {rank}: a card for each of LOCAL_WORLD_SIZE={local_world} "
+                        f"ranks does not exist (this host has {n_cards} CUDA device(s)); "
+                        "ranks that share a card pass device='cuda:0' explicitly")
+                named = [torch.device("cuda", i) for i in cards]
+            named = [torch.device("cuda", 0 if d.index is None else d.index) for d in named]
+            for d in named:
+                if d.index >= n_cards:
+                    raise RuntimeError(
+                        f"rank {rank}: {d} does not exist (this host has {n_cards} CUDA "
+                        "device(s)); ranks that share a card pass device='cuda:0' explicitly")
+            torch.cuda.set_device(named[0])
+    backend = backend or ("nccl" if named[0].type == "cuda" else "gloo")
+    if backend == "nccl" and named[0].type != "cuda":
+        raise ValueError(f"nccl runs on CUDA devices, not {named[0]}")
     dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
-    global _rank_device, _group_timeout_s
-    _rank_device, _group_timeout_s = device, float(timeout_s)
-    return device
+    global _rank_devices, _group_timeout_s
+    _rank_devices, _group_timeout_s = tuple(named), float(timeout_s)
+    return named[0]

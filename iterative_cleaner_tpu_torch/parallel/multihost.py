@@ -7,10 +7,13 @@ same directory and takes its round-robin slice of the path list
 crosses processes but the job launch, and ``driver.write_report`` gives
 each process's report a ``.p{rank}`` suffix.
 
-For one cube too big for one card, a mesh over the ranks
-(``parallel/mesh.make_mesh`` after ``initialize_distributed``) shards it
-over subints, and ``parallel/sharded.sharded_clean`` returns every rank
-the whole result (``parallel/collectives.py`` carries the traffic).
+Each process batches its slice over its own devices (:func:`local_mesh`,
+the rank's devices under a process group: the JAX package's per-host
+deployment).  For one cube too big for one host, a mesh over the ranks
+and their devices (``parallel/mesh.make_mesh`` after
+``initialize_distributed``) shards it over subints, and
+``parallel/sharded.sharded_clean`` returns every rank the whole result
+(``parallel/collectives.py`` carries the traffic).
 
 The process group is the caller's: :func:`process_topology` only reads
 it, as the JAX package's caller runs ``jax.distributed.initialize``
@@ -51,8 +54,9 @@ def local_mesh(device="cuda", **kw):
     """A mesh over this process's devices (the JAX module's ``:50-58``):
     every local card for ``cuda`` (``parallel/autoshard.default_devices``),
     the one card of ``cuda:N``, or ``cpu``.  Under a process group, this
-    rank's card: the normal multi-process deployment, one mesh per rank
-    over its slice of the paths."""
+    rank's devices (``parallel/mesh.rank_devices``): the normal
+    multi-process deployment, one in-process mesh per rank over its slice
+    of the paths."""
     from iterative_cleaner_tpu_torch.parallel import autoshard
     from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
 

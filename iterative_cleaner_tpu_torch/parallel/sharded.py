@@ -42,12 +42,16 @@ the one-device batch's bit for bit.
   that has stopped is frozen by its ``active`` mask.  The results meet on
   the first device and come back in one fetch; ``want_history`` returns
   the histories, as JAX does on a mesh the process fully addresses.
-- Over ranks (:func:`_rank_clean`) every rank calls :func:`sharded_clean`
-  with the same batch and gets the whole host result back, as on the JAX
-  package's process-spanning mesh; every rank of a slice runs the scalers
-  on the gathered maps, so they stop together.  Each ``dp`` slice loops
-  on its own, and the results meet once, at the end; ``want_history``
-  returns no history there, as the JAX package does.
+- Over ranks and their devices (:func:`_rank_clean`) every rank calls
+  :func:`sharded_clean` with the same batch and gets the whole host result
+  back, as on the JAX package's process-spanning mesh.  A rank runs its
+  slices as one process runs its mesh: whole slices inside the rank, or
+  its blocks of a slice that spans ranks, where the template is continued
+  from rank to rank and every rank of the slice runs the scalers on the
+  gathered maps, so they stop together.  A rank's slices run in lockstep
+  with one host read an iteration; the ranks loop on their own, and the
+  results meet once, at the end; ``want_history`` returns no history
+  there, as the JAX package does.
 
 ``tp`` stays declined (``parallel/mesh.py``).  The template is dense every
 iteration: ``batched_fused_clean`` in the JAX package passes no
@@ -182,35 +186,31 @@ def _converge_lockstep(steps, w0bs, max_iter):
     return [c.result() for c in carries]
 
 
-def rank_clean_step(Dblk, w0b, validb, w_prev, chanthresh, subintthresh, mesh, bounds, *,
-                    pulse_region, use_kernel=False):
-    """One iteration on a rank of a mesh over ranks: its block ``Dblk (a,
-    rows, nchan, nbin)`` (subints ``bounds[k]`` of its ``sp`` index ``k``)
-    and its ``dp`` slice's whole ``(a, nsub, nchan)`` maps.  Every rank of
-    the slice returns the same (test, new_w)."""
-    lo, hi = bounds[mesh.coords[1]]
-    template = collectives.continue_template(Dblk, w_prev[:, lo:hi].contiguous(), mesh)
-    maps = block_maps(Dblk, template, w0b[:, lo:hi].contiguous(),
-                      validb[:, lo:hi].contiguous(), pulse_region, use_kernel)
-    d_std, d_mean, d_ptp, d_fft = collectives.all_gather_maps(maps, mesh, bounds)
-    test = scale_and_combine(d_std, d_mean, d_ptp, d_fft, validb, chanthresh, subintthresh)
-    # Zap where test >= 1; NaN never flags.
-    new_w = torch.where(test >= 1.0, torch.zeros((), dtype=w0b.dtype, device=w0b.device), w0b)
-    return test, new_w
-
-
 def local_clean_step(blocks, w0_blocks, valid_blocks, w0b, validb, w_prev, chanthresh,
-                     subintthresh, bounds, *, pulse_region, use_kernel=False):
-    """One iteration of a ``dp`` slice of an in-process mesh: its ``sp``
-    blocks ``blocks[k] (a, rows_k, nchan, nbin)`` (subints ``bounds[k]``,
-    each on its device, with its rows of the original weights and valid
-    mask) and the slice's whole ``(a, nsub, nchan)`` maps on its first
-    device, where (test, new_w) are made."""
+                     subintthresh, bounds, *, pulse_region, use_kernel=False, mesh=None,
+                     spans=None):
+    """One iteration of this process's part of a ``dp`` slice: its blocks
+    ``blocks[k] (a, rows_k, nchan, nbin)`` (subints ``bounds[k]``, in
+    ``sp`` order, each on its device, with its rows of the original
+    weights and valid mask) and the slice's whole ``(a, nsub, nchan)``
+    maps on its first device, where (test, new_w) are made.  In one
+    process the blocks are the whole slice.  With ``mesh``, a mesh over
+    ranks whose slice spans ranks, they are this rank's part of it: the
+    template is continued from the slice's rank before and passed on, and
+    the rank's maps are gathered with the other ranks' (``spans``: each
+    rank's subints); every rank of the slice returns the same (test,
+    new_w)."""
     rows = collectives.scatter_rows(w_prev, bounds, [D.device for D in blocks])
-    templates = collectives.chain_template(blocks, rows)
+    if mesh is None:
+        templates = collectives.chain_template(blocks, rows)
+    else:
+        templates = collectives.continue_template(blocks, rows, mesh)
     maps = [block_maps(D, T, w0k, vk, pulse_region, use_kernel)
             for D, T, w0k, vk in zip(blocks, templates, w0_blocks, valid_blocks)]
-    d_std, d_mean, d_ptp, d_fft = collectives.gather_maps(maps, w0b.device)
+    maps = collectives.gather_maps(maps, w0b.device)
+    if mesh is not None:
+        maps = collectives.all_gather_maps(maps, mesh, spans)
+    d_std, d_mean, d_ptp, d_fft = maps
     test = scale_and_combine(d_std, d_mean, d_ptp, d_fft, validb, chanthresh, subintthresh)
     # Zap where test >= 1; NaN never flags.
     new_w = torch.where(test >= 1.0, torch.zeros((), dtype=w0b.dtype, device=w0b.device), w0b)
@@ -242,20 +242,22 @@ def _upload(cubes, weights, take, subints, weight_rows, device):
 
 
 def shard_batch(Db, w0b, mesh):
-    """Upload a same-shape batch to this process's device.  ``Db`` and
+    """Upload a same-shape batch to this process's devices.  ``Db`` and
     ``w0b`` are stacked host arrays or sequences of per-archive arrays: each
     archive is copied into its slice of one preallocated device tensor, so
     the bucket is never stacked a second time on the host.
 
-    On a one-device mesh, the whole batch.  On a mesh over ranks, only this
-    rank's part: the archives ``dp_index::dp``, the subints of its ``sp``
-    block of each cube (only those are read, so a memory-mapped cube is
-    read in part), and those archives' whole weight maps (the scalers need
-    every subint's); a rank outside the mesh uploads nothing and gets
-    ``(None, None)``.  On a mesh over this process's devices, two lists in
-    the mesh's device order: device ``(i, k)`` holds the archives
-    ``i::dp`` (none where the batch is shorter than ``dp``), their subints
-    and weight rows of block ``k``."""
+    On a one-device mesh, the whole batch.  On a mesh over this process's
+    devices, two lists in the mesh's device order: device ``(i, k)`` holds
+    the archives ``i::dp`` (none where the batch is shorter than ``dp``),
+    their subints and weight rows of block ``k``.  On a mesh over ranks,
+    only this rank's part, and of each cube only those subints are read (a
+    memory-mapped cube is read in part): with one device, the archives
+    ``dp_index::dp``, the subints of its ``sp`` block and those archives'
+    whole weight maps (the scalers need every subint's); with several,
+    two lists in the rank's device order as on a mesh over this process's
+    devices, for the positions the rank holds.  A rank outside the mesh
+    uploads nothing and gets ``(None, None)``."""
     cubes, weights = list(Db), list(w0b)
     if len(cubes) != len(weights):
         raise ValueError(f"{len(cubes)} cubes but {len(weights)} weight maps")
@@ -270,17 +272,19 @@ def shard_batch(Db, w0b, mesh):
     if (mesh.is_local or mesh.spans_ranks) and sp > shape[0]:
         raise ValueError(f"sp={sp} devices for {shape[0]} subints: a device would hold none")
     bounds = subint_bounds(shape[0], sp)
-    if mesh.is_local:
-        parts = [_upload(cubes, weights, range(i, len(cubes), dp), bounds[k], True, dev)
-                 for i, row in enumerate(mesh.grid) for k, dev in enumerate(row)]
-        return [D for D, _ in parts], [w for _, w in parts]
-    if not mesh.spans_ranks:
+    if not mesh.spans_ranks and not mesh.is_local:
         return _upload(cubes, weights, range(len(cubes)), (0, shape[0]), False, mesh.device)
-    if mesh.coords is None:
+    if mesh.spans_ranks and mesh.coords is None:
         return None, None
-    dp_index, sp_index = mesh.coords
-    return _upload(cubes, weights, range(dp_index, len(cubes), dp), bounds[sp_index], False,
-                   mesh.device)
+    if mesh.spans_ranks and len(mesh.devices) == 1:
+        dp_index, sp_index = mesh.coords
+        return _upload(cubes, weights, range(dp_index, len(cubes), dp), bounds[sp_index], False,
+                       mesh.device)
+    places = (mesh.positions if mesh.spans_ranks
+              else [divmod(p, sp) for p in range(len(mesh.devices))])
+    parts = [_upload(cubes, weights, range(i, len(cubes), dp), bounds[k], True, dev)
+             for (i, k), dev in zip(places, mesh.devices)]
+    return [D for D, _ in parts], [w for _, w in parts]
 
 
 def sharded_clean_single(D: np.ndarray, w0: np.ndarray, cfg: CleanConfig, mesh=None):
@@ -408,38 +412,89 @@ def _meet(parts, device):
     return [p if j == 0 else collectives.hand(p, device) for j, p in enumerate(parts)]
 
 
+def _rank_slices(parts, mesh, nsub):
+    """This rank's part of each ``dp`` slice it holds that has archives,
+    from :func:`shard_batch`'s ``parts``: (dp index, its blocks, their rows
+    of the original weights, the blocks' subint bounds, the slice's whole
+    original weights on the first block's device, and the slice's ranks'
+    subint spans where it spans ranks, else None).  With several devices
+    the whole weights are gathered from the blocks, and across the slice's
+    ranks where it spans them."""
+    Ds, ws = parts
+    if Ds is None:
+        return []
+    sp, k = mesh.shape["sp"], len(mesh.devices)
+    bounds = subint_bounds(nsub, sp)
+    spans = ([(bounds[r * k][0], bounds[r * k + k - 1][1]) for r in range(sp // k)]
+             if sp > k else None)
+    if k == 1:
+        i, j = mesh.coords
+        lo, hi = bounds[j]
+        if Ds.shape[0] == 0:
+            return []
+        return [(i, [Ds], [ws[:, lo:hi].contiguous()], [bounds[j]], ws, spans)]
+    held = {}
+    for (i, j), D, w in zip(mesh.positions, Ds, ws):
+        blocks, rows, mine = held.setdefault(i, ([], [], []))
+        blocks.append(D)
+        rows.append(w)
+        mine.append(bounds[j])
+    out = []
+    for i, (blocks, rows, mine) in held.items():
+        if blocks[0].shape[0] == 0:
+            continue   # a batch shorter than dp: this slice holds no archive
+        w0t = collectives.gather_maps([(w,) for w in rows], blocks[0].device)[0]
+        if spans is not None:
+            w0t = collectives.all_gather_maps((w0t,), mesh, spans)[0]
+        out.append((i, blocks, rows, mine, w0t, spans))
+    return out
+
+
 def _rank_clean(Db, w0b, cfg: CleanConfig, mesh):
-    """:func:`sharded_clean` on a mesh over ranks: this rank's slice
-    through :func:`rank_clean_step` until its ``dp`` slice has stopped,
-    then every slice's results to every rank in one gather."""
-    Dt, w0t = shard_batch(Db, w0b, mesh)
+    """:func:`sharded_clean` on a mesh over ranks: this rank's ``dp``
+    slices (whole slices inside the rank, or its part of one that spans
+    ranks) through :func:`local_clean_step` in lockstep
+    (:func:`_converge_lockstep`) until they have stopped, then every
+    slice's results to every rank in one gather."""
+    parts = shard_batch(Db, w0b, mesh)
     narch = len(Db)
     nsub, nchan, nbin = (int(d) for d in np.shape(Db[0]))
-    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    dp, sp, k = mesh.shape["dp"], mesh.shape["sp"], len(mesh.devices)
     n = nsub * nchan
-    # Per archive: its scores, its weights, loops and converged.
-    rows = torch.zeros((-(-narch // dp), 2 * n + 2), dtype=torch.float32,
+    # Per slice the rank holds, per archive: its scores, its weights, loops
+    # and converged.
+    rows = torch.zeros((max(1, k // sp), -(-narch // dp), 2 * n + 2), dtype=torch.float32,
                        device=device_for(mesh.device))
-    if Dt is not None and Dt.shape[0] > 0:
+    slices = _rank_slices(parts, mesh, nsub)
+    if slices:
         kw = dict(pulse_region=tuple(cfg.pulse_region),
-                  use_kernel=kernel_for(cfg.replace(x64=False), nbin, Dt.device))
+                  use_kernel=kernel_for(cfg.replace(x64=False), nbin, slices[0][1][0].device),
+                  mesh=mesh if sp > k else None)
         thresholds = (float(cfg.chanthresh), float(cfg.subintthresh))
-        valid = w0t != 0
-        bounds = subint_bounds(nsub, sp)
+        steps, w0s = [], []
+        for _i, blocks, w_blocks, bounds, w0t, spans in slices:
+            valid_blocks = [w != 0 for w in w_blocks]
+            valid = w0t != 0
 
-        def step(w_prev):
-            return rank_clean_step(Dt, w0t, valid, w_prev, *thresholds, mesh, bounds, **kw)
+            def step(w_prev, blocks=blocks, w_blocks=w_blocks, valid_blocks=valid_blocks,
+                     w0t=w0t, valid=valid, bounds=bounds, spans=spans):
+                return local_clean_step(blocks, w_blocks, valid_blocks, w0t, valid, w_prev,
+                                        *thresholds, bounds, spans=spans, **kw)
 
-        test, w_final, loops, done, _x, _r, _hist = _converge(step, w0t, int(cfg.max_iter))
-        a = test.shape[0]
-        rows[:a] = torch.cat((test.reshape(a, n), w_final.reshape(a, n),
-                              loops[:, None].to(rows.dtype), done[:, None].to(rows.dtype)),
-                             dim=1)
+            steps.append(step)
+            w0s.append(w0t)
+        outs = _converge_lockstep(steps, w0s, int(cfg.max_iter))
+        for (i, *_), (test, w_final, loops, done, *_rest) in zip(slices, outs):
+            a = test.shape[0]
+            rows[i - mesh.coords[0], :a] = torch.cat(
+                (test.reshape(a, n), w_final.reshape(a, n), loops[:, None].to(rows.dtype),
+                 done[:, None].to(rows.dtype)), dim=1)
     got = collectives.gather_results(rows, mesh)     # (ranks of the group, *rows.shape)
     out = np.empty((narch, 2 * n + 2), dtype=np.float32)
     for i in range(dp):
-        # The slice's first rank is the group's rank i * sp.
-        out[i::dp] = got[i * sp, :len(range(i, narch, dp))]
+        # Slice i's first position is i * sp: on group rank i * sp // k.
+        g = i * sp // k
+        out[i::dp] = got[g, i - g * k // sp, :len(range(i, narch, dp))]
     return (out[:, :n].reshape(narch, nsub, nchan),
             out[:, n:2 * n].reshape(narch, nsub, nchan),
             out[:, 2 * n].astype(np.int64), out[:, 2 * n + 1].astype(bool))

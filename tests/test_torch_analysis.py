@@ -660,7 +660,7 @@ class TestRouteContracts:
             (route, label) for route, labels in contracts.ROUTE_HOST_READS.items()
             for label in labels}
         assert set(contracts.ROUTE_HOST_READS) == {"stepwise", "fused", "chunked", "batch",
-                                                   "local", "ranks"}
+                                                   "local", "ranks", "rank_devices"}
         assert {r.kernel for r in runs} == {False, True}
 
     def test_every_ledger_line_names_a_unit_and_a_reason(self):
