@@ -299,6 +299,7 @@ import io
 import json
 import multiprocessing as mp
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -361,6 +362,30 @@ def _stderr_to(buf: io.StringIO):
     finally:
         for line in buf.getvalue().splitlines():
             log(f"  stderr: {line}")
+
+
+@contextlib.contextmanager
+def _fd_stderr(path: str):
+    """File descriptor 2 into ``path`` for the ``with`` block: what C++
+    writes there (Kineto's messages) as well, which :func:`_stderr_to`
+    does not see.  Yields a list that holds the lines once the block has
+    ended; they are echoed to the log."""
+    lines: list[str] = []
+    sys.stderr.flush()
+    saved = os.dup(2)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 2)
+    os.close(fd)
+    try:
+        yield lines
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+        with open(path, errors="replace") as fh:
+            lines.extend(fh.read().splitlines())
+        for line in lines:
+            log(f"  stderr (fd 2): {line}")
 
 
 @contextlib.contextmanager
@@ -1553,13 +1578,13 @@ def phase_obs(lofar, entries) -> dict:
     fused_b = [e for e in dev_b if e["cat"] == "kernel" and FUSED_KERNEL in e["name"]]
     spans_b = sum(1 for e in evs_b if e.get("cat") == "user_annotation"
                   and e.get("name") == "fused_fit_moments")
-    check(fused_b, f"the bounded capture holds no {FUSED_KERNEL} kernel")
-    log(f"  bounded capture (profiling.start -> run_fused -> stop, on its own thread): "
-        f"{stopped['duration_s']:.2f}s, listed, an overlapping start refused; "
-        f"{FUSED_KERNEL} device kernels {len(fused_b)} at +"
+    log(f"  bounded capture (profiling.start -> run_fused -> stop; prepared on this thread, "
+        f"started and stopped on its own): {stopped['duration_s']:.2f}s, listed, an "
+        f"overlapping start refused; {FUSED_KERNEL} device kernels {len(fused_b)} at +"
         + ", +".join(f"{(e['ts'] - dev_b[0]['ts']) / 1e3:.2f}" for e in fused_b)
-        + f" ms, host spans {spans_b}, launches {x}"
-        + ("" if len(fused_b) == x else " (a device record short of the launches)"))
+        + f" ms, host spans {spans_b}, launches {x}")
+    check(len(fused_b) == x, f"the bounded capture holds {len(fused_b)} {FUSED_KERNEL} device "
+          f"kernels, the wrapper counted {x} launches")
     fused_stats = _busy_report(dev_b, dev_b[0]["ts"], max(e["ts"] + e["dur"] for e in dev_b),
                                "run_fused from host arrays (upload, loop, fetch)")
 
@@ -4613,13 +4638,28 @@ def phase_local_mesh(lofar) -> tuple[dict, dict]:
 FUZZ_SEEDS, FUZZ_SEEDS_X64 = 16, 8
 
 
+def _mode_line(out: str, mode: str) -> dict:
+    """The fuzz tool's line for ``mode``: its seeds, those identical to the
+    oracle, its drift and each kernel's launches."""
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"mode {mode}: ")]
+    check(len(lines) == 1, f"fuzz: {len(lines)} lines for mode {mode}")
+    m = re.match(r"mode \S+: (\d+) seeds, (\d+) identical to the oracle, max score drift vs "
+                 r"the oracle (\S+), .*launches (.*)$", lines[0])
+    check(m is not None, f"fuzz: unparsed mode line {lines[0]!r}")
+    return {"seeds": int(m[1]), "identical": int(m[2]), "drift": float(m[3]),
+            **{name: int(v) for name, v in (part.split() for part in m[4].split(", "))}}
+
+
 def phase_fuzz() -> dict:
     """``tools_torch/fuzz_sweep.py`` on cuda in two processes side by side
     (float32 and ``--x64``): rc 0, every seed and mode identical to the
-    oracle; the tool's per-mode drift and sparse-update lines.  Then
+    oracle; the tool's per-mode drift and sparse-update lines; the float32
+    process's ``sharded`` mode (each cube over 8 logical devices of the
+    card) identical on every seed, with both kernels launched.  Then
     ``tools_torch/replay_repro.py`` on cuda on a bundle whose served mask
     has one flipped cell: cleared, the recorded mask not the oracle's,
-    rc 0.  Returns each kernel's launches in the tool's processes."""
+    rc 0.  Returns each kernel's launches in the tool's processes, and in
+    the sharded mode under ``f32_sharded``."""
     import numpy as np
 
     from iterative_cleaner_tpu_torch.config import CleanConfig
@@ -4659,6 +4699,17 @@ def phase_fuzz() -> dict:
             check(len(counts) == 1, f"fuzz {k}: no launch line")
             launches[k] = {name: int(v) for name, v in
                            (part.split() for part in counts[0][len("launches:"):].split(","))}
+        sharded = _mode_line(outs["f32"][0], "sharded")
+        check(sharded["seeds"] == sharded["identical"] == FUZZ_SEEDS,
+              f"fuzz sharded mode: {sharded['identical']}/{sharded['seeds']} seeds identical")
+        check(sharded["fused_fit_moments"] > 0 and sharded["ordered_template"] > 0,
+              f"fuzz sharded mode launched a kernel no time: {sharded}")
+        log(f"  fuzz f32 sharded (8 logical devices of cuda:0, dp=4 x sp=2): "
+            f"{sharded['identical']}/{sharded['seeds']} seeds identical to the oracle, drift "
+            f"{sharded['drift']:.4e}, launches fused_fit_moments {sharded['fused_fit_moments']}, "
+            f"ordered_template {sharded['ordered_template']}")
+        launches["f32_sharded"] = {k: sharded[k] for k in ("fused_fit_moments",
+                                                           "ordered_template")}
 
         D, w0 = preprocess(make_archive(nsub=16, nchan=64, nbin=128, seed=23))
         cfg = CleanConfig(backend="torch")
@@ -5444,7 +5495,12 @@ def main() -> int:
         by_path = {"stepwise_cli": entry["launches"], "cli_warm_up": lofar["warm_launches"]}
         template_by_path = {"stepwise_cli": entries["ordered_template"]["launches"],
                             "cli_warm_up": lofar["warm_template_launches"]}
-        obs_launches, busy = timed("obs", phase_obs, lofar, entries)
+        with _fd_stderr(os.path.join(work, "obs_stderr.txt")) as said:
+            obs_launches, busy = timed("obs", phase_obs, lofar, entries)
+        kineto = [line for line in said if "External init callback" in line]
+        check(not kineto, f"the obs phase's stderr: {kineto}")
+        log(f"obs: {len(said)} stderr lines at the file-descriptor level, none from Kineto's "
+            "set-up on another thread")
         by_path["obs_cli"] = obs_launches["obs_cli"]
         by_path["obs_capture"] = obs_launches["obs_capture"]
         template_by_path["obs_cli"] = obs_launches["obs_cli_template"]
@@ -5477,6 +5533,8 @@ def main() -> int:
         by_path["fuzz"] = fuzz["f32"]["fused_fit_moments"]
         template_by_path["fuzz"] = fuzz["f32"]["ordered_template"]
         f64_by_path["fuzz_x64"] = fuzz["x64"]["ordered_template_f64"]
+        by_path["fuzz_sharded"] = fuzz["f32_sharded"]["fused_fit_moments"]
+        template_by_path["fuzz_sharded"] = fuzz["f32_sharded"]["ordered_template"]
         fit_sparse, template_sparse, f64_sparse = timed(
             "sparse template", phase_sparse_template, quiet, entries["ordered_template"])
         by_path.update(fit_sparse)

@@ -222,20 +222,24 @@ def analyze_batch_route(batch_shape, cfg) -> dict | None:
     bucket executable: :func:`kernel_iteration_cost` (one iteration, as
     XLA's analysis counts a loop body once) and the peak device bytes of
     ``parallel/autoshard.batch_working_set_bytes``.  Exported as the
-    ``executable_*`` gauges; None when ``ICT_EXEC_ANALYSIS=0``."""
+    ``executable_*`` gauges at every call, the memoized ones too, so that
+    the gauges follow the dispatches since the registry was last reset
+    and not whether the process analyzed the bucket before; None when
+    ``ICT_EXEC_ANALYSIS=0``."""
     if os.environ.get("ICT_EXEC_ANALYSIS", "1") == "0":
         return None
     bucket = tracing.shape_bucket_label(batch_shape)
     with _exec_lock:
-        if bucket in _exec_registry:
-            return dict(_exec_registry[bucket])
-    from iterative_cleaner_tpu_torch.parallel.autoshard import batch_working_set_bytes
+        analysis = _exec_registry.get(bucket)
+    if analysis is None:
+        from iterative_cleaner_tpu_torch.parallel.autoshard import batch_working_set_bytes
 
-    a, nsub, nchan, nbin = (int(v) for v in batch_shape)
-    analysis = kernel_iteration_cost(batch_shape)
-    analysis["peak_bytes"] = int(batch_working_set_bytes((nsub, nchan, nbin), cfg, True, a))
-    with _exec_lock:
-        _exec_registry[bucket] = analysis
+        a, nsub, nchan, nbin = (int(v) for v in batch_shape)
+        analysis = kernel_iteration_cost(batch_shape)
+        analysis["peak_bytes"] = int(batch_working_set_bytes((nsub, nchan, nbin), cfg, True,
+                                                             a))
+        with _exec_lock:
+            _exec_registry[bucket] = analysis
     labels = {"shape_bucket": bucket}
     for key, family in (("bytes_accessed", "executable_bytes_accessed"),
                         ("flops", "executable_flops"),

@@ -28,8 +28,12 @@ that started it, so a bounded capture runs on a thread of its own, which
 starts the profiler, waits for :func:`stop` or the deadline, stops it and
 writes the trace; it records every thread's host activity where this
 torch offers that (``profile_all_threads``), and the device activity of
-the whole process in any case.  :func:`profile_trace` runs on the caller's
-thread.
+the whole process in any case.  The profiler is prepared on the thread
+that calls :func:`start`: Kineto sets itself up once a process, at the
+first preparation, and only on the thread that imported torch does it
+do so silently; from any other thread it prints "External init callback
+must run in same thread as registerClient".  :func:`profile_trace` runs
+on the caller's thread.
 """
 
 from __future__ import annotations
@@ -117,8 +121,9 @@ def _release(capture) -> bool:
 
 
 class _Capture(threading.Thread):
-    """One bounded capture on its own thread: start, wait for the stop
-    request or the deadline, stop, write the trace."""
+    """One bounded capture: prepared on the caller's thread, then on its
+    own thread started, held until the stop request or the deadline,
+    stopped and written."""
 
     def __init__(self, out_dir: str, duration_s: float, device) -> None:
         super().__init__(daemon=True, name="ict-profile")
@@ -130,6 +135,12 @@ class _Capture(threading.Thread):
         self.done = threading.Event()
         self.error: BaseException | None = None
         self.path: str | None = None
+        self.prof = None
+
+    def prepare(self) -> None:
+        """Make the profiler and prepare its trace, on the calling thread."""
+        self.prof = _profiler(self.device, all_threads=True)
+        self.prof.prepare_trace()
 
     def run(self) -> None:
         import torch
@@ -140,10 +151,9 @@ class _Capture(threading.Thread):
         sync = (torch.device(self.device).type == "cuda"
                 and torch.cuda.is_initialized())
         try:
-            prof = _profiler(self.device, all_threads=True)
             if sync:
                 torch.cuda.synchronize(self.device)  # ict: backend-init-ok(gated on torch.cuda.is_initialized() above)
-            prof.start()
+            self.prof.start_trace()
             if sync:
                 torch.cuda.synchronize(self.device)  # ict: backend-init-ok(gated on torch.cuda.is_initialized() above)
         except BaseException as exc:  # noqa: BLE001 — handed to start()
@@ -154,8 +164,8 @@ class _Capture(threading.Thread):
         self.started.set()
         self.stop_requested.wait(self.duration_s)
         try:
-            prof.stop()
-            self.path = _export(prof, self.out_dir)
+            self.prof.stop_trace()
+            self.path = _export(self.prof, self.out_dir)
         except Exception as exc:  # noqa: BLE001 — reported by stop()
             self.error = exc
         finally:
@@ -179,6 +189,7 @@ def start(root: str, duration_s: float = 5.0, tag: str = "capture",
         _active = _claim(out_dir, time.time() + duration_s, cap)
         try:
             os.makedirs(out_dir, exist_ok=True)
+            cap.prepare()
             cap.start()
             cap.started.wait()
             if cap.error is not None:

@@ -47,8 +47,10 @@ and ``parallel/multihost.local_mesh`` use.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -65,6 +67,7 @@ DEFAULT_GROUP_TIMEOUT_S = 300.0
 #: :func:`initialize_distributed` set them.
 _rank_devices: tuple[torch.device, ...] | None = None
 _group_timeout_s: float = DEFAULT_GROUP_TIMEOUT_S
+_destroy_registered = False
 
 
 def factor_mesh(n: int) -> tuple[int, int, int]:
@@ -94,7 +97,21 @@ def subint_bounds(nsub: int, sp: int) -> list[tuple[int, int]]:
     return out
 
 
-@dataclass(frozen=True)
+def _weak(group) -> weakref.ref | None:
+    return None if group is None else weakref.ref(group)
+
+
+def _live(ref: weakref.ref | None):
+    if ref is None:
+        return None
+    group = ref()
+    if group is None:
+        raise RuntimeError("the mesh's process group was destroyed (destroy_process_group); "
+                           "make a new mesh in a new group")
+    return group
+
+
+@dataclass(frozen=True, init=False)
 class Mesh:
     """The devices a batch runs on, with the JAX mesh's axis names and
     extents (``shape["dp"]`` etc.).
@@ -113,20 +130,44 @@ class Mesh:
     a rank left out of the mesh: it does no device work and receives the
     result), ``coords`` the first of them, and ``sp_group`` the process
     group of the ranks of this rank's ``dp`` slice when that slice spans
-    ranks (``sp > k``), else None."""
+    ranks (``sp > k``), else None.
+
+    The mesh refers to its groups weakly: ``torch.distributed`` owns them
+    until ``destroy_process_group``.  A group that a mesh kept alive past
+    that call would be torn down while the interpreter exits, and gloo's
+    teardown there aborts the process at random ("terminate called
+    without an active exception").  Reading ``group`` or ``sp_group`` of a
+    destroyed group raises."""
 
     devices: tuple[torch.device, ...]
     shape: dict
-    group: object = None
     backend: str = ""
     group_ranks: tuple[int, ...] = ()
     coords: tuple[int, int] | None = None
-    sp_group: object = None
     positions: tuple[tuple[int, int], ...] = ()
+    _group: weakref.ref | None = None
+    _sp_group: weakref.ref | None = None
 
-    def __post_init__(self):
-        if self.coords is not None and not self.positions:
-            object.__setattr__(self, "positions", (tuple(self.coords),))
+    def __init__(self, devices, shape, group=None, backend="", group_ranks=(), coords=None,
+                 sp_group=None, positions=()):
+        if coords is not None and not positions:
+            positions = (tuple(coords),)
+        for name, value in (("devices", devices), ("shape", shape), ("backend", backend),
+                            ("group_ranks", group_ranks), ("coords", coords),
+                            ("positions", positions), ("_group", _weak(group)),
+                            ("_sp_group", _weak(sp_group))):
+            object.__setattr__(self, name, value)
+
+    @property
+    def group(self):
+        """The process group of a mesh over ranks, else None."""
+        return _live(self._group)
+
+    @property
+    def sp_group(self):
+        """The process group of this rank's ``dp`` slice when it spans
+        ranks, else None."""
+        return _live(self._sp_group)
 
     @property
     def device(self) -> torch.device:
@@ -144,12 +185,12 @@ class Mesh:
     @property
     def is_local(self) -> bool:
         """Whether the mesh is over several devices of this process."""
-        return self.group is None and len(self.devices) > 1
+        return self._group is None and len(self.devices) > 1
 
     @property
     def spans_ranks(self) -> bool:
         """Whether the mesh is over the ranks of a process group."""
-        return self.group is not None
+        return self._group is not None
 
     @property
     def ranks(self) -> tuple[int, ...]:
@@ -323,7 +364,8 @@ def initialize_distributed(backend: str | None = None, device=None, devices=None
     them), with a timeout of ``timeout_s`` seconds on the group.  Call once
     per process before any device use.  Returns this rank's first device,
     and records its devices (:func:`rank_devices`) and the timeout for
-    :func:`make_mesh` (its ``sp`` groups take the same timeout).
+    :func:`make_mesh` (its ``sp`` groups take the same timeout).  A group
+    the process has not destroyed by its exit is destroyed then.
 
     The rank holds ``devices`` (a list; a card named more than once gives
     logical devices), or ``[device]``.  By default it takes the block of
@@ -377,6 +419,18 @@ def initialize_distributed(backend: str | None = None, device=None, devices=None
         raise ValueError(f"nccl runs on CUDA devices, not {named[0]}")
     dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
-    global _rank_devices, _group_timeout_s
+    global _rank_devices, _group_timeout_s, _destroy_registered
     _rank_devices, _group_timeout_s = tuple(named), float(timeout_s)
+    if not _destroy_registered:
+        atexit.register(_destroy_at_exit)
+        _destroy_registered = True
     return named[0]
+
+
+def _destroy_at_exit() -> None:
+    """Destroy the default group, and the groups made in it, while the
+    interpreter still runs (as ``jax.distributed`` shuts its client down
+    at exit): a group torn down in the interpreter's own teardown can
+    abort the process (:class:`Mesh`)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -584,10 +584,16 @@ def _run_mini_fleet(pkg, start, tmp, paths):
     the router's family names and ``fleet_top``'s reply.  The package's
     process-wide registry starts empty, so the replicas' families are
     this traffic's alone, and ``b`` flushes each cube as it lands (bucket
-    cap 1), so no family follows the loaders' timing."""
+    cap 1), so no family follows the loaders' timing.  The JAX package
+    publishes a bucket's ``executable_*`` gauges (and the router its
+    ``fleet_capacity_bucket_cost_bytes`` from them) only when it first
+    analyzes the bucket in the process, so its memo of analyses starts
+    empty too; the port publishes them at every dispatch."""
     tmp.mkdir(parents=True, exist_ok=True)
     tracing = _mod(pkg, "obs.tracing")
     tracing.reset_counters()
+    if pkg == PKGS[0]:
+        _mod(pkg, "obs.memory")._exec_registry.clear()
     svc_a = start(tmp, "mf-a", deadline_s=3600.0, bucket_cap=8)
     svc_b = start(tmp, "mf-b", deadline_s=0.2, bucket_cap=1)
     router = _router(pkg, tmp, svc_a, svc_b)

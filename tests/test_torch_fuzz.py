@@ -7,6 +7,9 @@
 - the tool's modes on ``cpu`` for a few seeds, float32 and ``--x64``: every
   mask, loop count and convergence identical to the oracle; a mismatch
   writes a repro bundle and makes the tool exit 1;
+- its ``sharded`` mode (one cube over 8 logical CPU devices) on the JAX
+  test's seeds 12-15, against the oracle and the JAX package's
+  ``sharded_clean_single`` on its 8 CPU devices;
 - ``tools_torch/replay_repro.py`` on bundles the port writes: cleared
   (rc 0) when the live route agrees with the oracle, whatever the recorded
   served mask says; unusable (rc 2) for a directory that is no bundle.
@@ -21,6 +24,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from test_fuzz_equivalence import draw_case as jax_draw_case
@@ -61,9 +65,10 @@ def test_every_mode_matches_the_oracle(seed, x64):
     want = {"stepwise", "stepwise_dense", "fused", "fused_dense", "chunked", "chunked_serial",
             "chunked_dense", "online"}
     if not x64:
-        want |= {"kernel", "coalesced(k=3)"}
+        want |= {"kernel", "sharded", "coalesced(k=3)"}
     assert set(stats) == want
     assert all(st["drift"] < 5e-5 for st in stats.values())
+    assert all(st["identical"] == st["seeds"] == 1 for st in stats.values())
     assert stats["stepwise_dense"]["sparse_seeds"] == 0
 
 
@@ -85,7 +90,43 @@ def _bundle(tmp_path, flip: bool, route="stepwise"):
     return path
 
 
-@pytest.mark.parametrize("route", ["stepwise", "coalesced(k=3)"])
+@pytest.mark.parametrize("seed", range(12, 16))
+def test_sharded_matches_jax_and_numpy_fuzzed(seed):
+    """The fuzz's sharded mode: one cube over 8 logical CPU devices
+    (``dp=4 x sp=2``) against the port's numpy oracle and the JAX package's
+    ``sharded_clean_single`` on its 8 CPU devices (``dp=2 x sp=2 x tp=2``),
+    masks and loop counts bit for bit, as ``tests/test_fuzz_equivalence.py``
+    holds the JAX package's."""
+    import jax
+
+    from iterative_cleaner_tpu.config import CleanConfig as JaxConfig
+    from iterative_cleaner_tpu.ops.preprocess import preprocess as jax_preprocess
+    from iterative_cleaner_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from iterative_cleaner_tpu.parallel.sharded import sharded_clean_single as jax_sharded
+    from iterative_cleaner_tpu_torch.config import CleanConfig
+    from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
+    from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+    from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
+    from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean_single
+
+    archive, kw = fuzz.draw_case(seed)
+    D, w0 = preprocess(archive)
+    ora = clean_cube(D, w0, CleanConfig(backend="numpy", **kw))
+    mesh = make_mesh(8, devices=["cpu"] * 8)
+    assert mesh.shape == {"dp": 4, "sp": 2, "tp": 1}
+    _t, w, loops, done = sharded_clean_single(D, w0, CleanConfig(backend="torch", **kw), mesh)
+    assert w.tobytes() == ora.weights.tobytes()
+    assert (loops, done) == (ora.loops, ora.converged)
+
+    jax_archive, jax_kw = jax_draw_case(seed)
+    Dj, w0j = jax_preprocess(jax_archive)
+    _tj, wj, loops_j, done_j = jax_sharded(
+        Dj, w0j, JaxConfig(backend="jax", **jax_kw), jax_make_mesh(8, devices=jax.devices("cpu")))
+    assert w.tobytes() == np.asarray(wj).tobytes()
+    assert (loops, done) == (loops_j, done_j)
+
+
+@pytest.mark.parametrize("route", ["stepwise", "coalesced(k=3)", "sharded"])
 def test_replay_clears_a_transient_divergence(tmp_path, capsys, route):
     rc = replay.main([_bundle(tmp_path, flip=True, route=route), "--device", "cpu"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -13,8 +13,11 @@ from __future__ import annotations
 import glob
 import json
 import os
+import subprocess
+import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from iterative_cleaner_tpu_torch.obs import events, flight, metrics, profiling, 
 from iterative_cleaner_tpu_torch.online import OnlineSession, SessionMeta
 from iterative_cleaner_tpu_torch.utils import device_probe
 
+REPO = Path(__file__).resolve().parents[1]
 SHAPE = (16, 64, 128)
 #: Per-record fields that differ between any two runs.
 VOLATILE = ("ts", "trace_id", "span_id", "parent_span_id", "duration_s", "argv",
@@ -164,6 +168,28 @@ class TestProfiling:
         assert profiling.active() is None
         _trace_events(rec["dir"])
         assert "profile_stop" in [r["event"] for r in flight.snapshot()]
+
+    def test_first_capture_of_a_process_prints_nothing(self, tmp_path):
+        # Kineto writes from C++ to file descriptor 2, which a fresh process
+        # shows whole.  Its one-time set-up runs at a process's first
+        # capture: on the thread that calls start, it says nothing; on the
+        # capture's own thread it printed "External init callback must run
+        # in same thread as registerClient".
+        script = (
+            "import sys, torch\n"
+            "from iterative_cleaner_tpu_torch.obs import profiling\n"
+            "rec = profiling.start(sys.argv[1], duration_s=30, tag='first', device='cpu')\n"
+            "with torch.profiler.record_function('first_span'):\n"
+            "    torch.ones(8) @ torch.ones(8)\n"
+            "print(profiling.stop(expected_dir=rec['dir'])['trace'])\n")
+        run = subprocess.run([sys.executable, "-c", script, str(tmp_path)], capture_output=True,
+                             text=True, timeout=120, cwd=str(tmp_path),
+                             env=dict(os.environ, PYTHONPATH=str(REPO)))
+        assert run.returncode == 0, run.stderr
+        assert "External init callback" not in run.stderr, run.stderr
+        with open(run.stdout.strip().splitlines()[-1]) as fh:
+            names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+        assert "first_span" in names
 
     def test_maybe_capture_and_one_shot(self, tmp_path):
         with profiling.maybe_capture(str(tmp_path), "job", device="cpu") as d:

@@ -50,7 +50,7 @@ from iterative_cleaner_tpu_torch.parallel.mesh import (
     make_mesh,
     rank_cards,
 )
-from test_torch_ranks import run_ranks
+from test_torch_ranks import STAND_IN_GROUP, run_ranks
 
 NCHAN, NBIN = 16, 64
 #: Seconds a group's children may take; their collectives time out sooner.
@@ -445,11 +445,11 @@ class TestInitializeRefusals:
 
 def _rank_mesh(dp, sp, k, n_ranks, me):
     """A mesh over ranks as ``make_mesh`` gives rank ``me``, built without
-    a group (``group=object()``): the positions of its ``k`` devices."""
+    a group (``group=STAND_IN_GROUP``): the positions of its ``k`` devices."""
     n = dp * sp
     positions = tuple((p // sp, p % sp) for p in range(me * k, min((me + 1) * k, n)))
     return Mesh(devices=(torch.device("cpu"),) * k, shape={"dp": dp, "sp": sp, "tp": 1},
-                group=object(), backend="gloo", group_ranks=tuple(range(n_ranks)),
+                group=STAND_IN_GROUP, backend="gloo", group_ranks=tuple(range(n_ranks)),
                 coords=positions[0] if positions else None, positions=positions)
 
 
@@ -470,7 +470,7 @@ class TestRankMeshLayout:
 
     def test_coords_alone_give_one_position(self):
         mesh = Mesh(devices=(torch.device("cpu"),), shape={"dp": 1, "sp": 2, "tp": 1},
-                    group=object(), group_ranks=(0, 1), coords=(0, 1))
+                    group=STAND_IN_GROUP, group_ranks=(0, 1), coords=(0, 1))
         assert mesh.positions == ((0, 1),)
 
     @pytest.mark.parametrize("dp, sp, me, archives, blocks", [

@@ -42,6 +42,14 @@ from iterative_cleaner_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 REPO = Path(__file__).resolve().parents[1]
 SHAPE = (8, 16, 64)
+
+
+class StandInGroup:
+    """Stands for a process group in a mesh whose collectives a test never
+    runs (a mesh refers to its group weakly, so the stand-in lives here)."""
+
+
+STAND_IN_GROUP = StandInGroup()
 #: Seconds a child rank may take; its group's collectives time out sooner.
 RANK_TIMEOUT_S = 120
 GROUP_TIMEOUT_S = 60
@@ -246,6 +254,43 @@ def test_a_dead_rank_fails_its_peer(tmp_path):
     assert time.monotonic() - t0 < RANK_TIMEOUT_S
 
 
+#: A rank that makes a mesh over two ranks (with an sp group), then either
+#: destroys the group and reads what is left of it, or exits holding it.
+#: The hook registered first runs last, after the port's.
+TEARDOWN_SCRIPT = r"""
+import atexit, sys, weakref
+import torch.distributed as dist
+atexit.register(lambda: print("initialized at exit:", dist.is_initialized(), flush=True))
+from iterative_cleaner_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+initialize_distributed(backend="gloo", device="cpu", timeout_s=float(sys.argv[1]))
+mesh = make_mesh(2, dp=1, sp=2, tp=1)
+refs = [weakref.ref(mesh.group), weakref.ref(mesh.sp_group)]
+if sys.argv[2] == "destroy":
+    dist.destroy_process_group()
+    print("groups alive:", [r() is not None for r in refs], flush=True)
+    try:
+        mesh.group
+    except RuntimeError as exc:
+        print("group read:", exc, flush=True)
+"""
+
+
+@pytest.mark.parametrize("end", ["destroy", "exit"])
+def test_a_mesh_leaves_its_groups_to_torch_distributed(tmp_path, end):
+    # A group that outlives destroy_process_group (or a process that never
+    # calls it) is torn down while the interpreter exits, where gloo
+    # aborts at random: rc -6, "terminate called without an active
+    # exception".  The mesh must not keep its groups alive, and the group
+    # must be gone before the interpreter's own teardown.
+    got = run_ranks(TEARDOWN_SCRIPT, 2, tmp_path, (GROUP_TIMEOUT_S, end))
+    for rank, (_rc, out, err) in enumerate(got):
+        assert "terminate called" not in err, f"rank {rank}: {err}"
+        assert out.splitlines()[-1] == "initialized at exit: False", f"rank {rank}: {out}"
+        if end == "destroy":
+            assert "groups alive: [False, False]" in out, f"rank {rank}: {out}"
+            assert "process group was destroyed" in out, f"rank {rank}: {out}"
+
+
 class TestShardBatch:
     @pytest.mark.parametrize("coords, archives, subints", [
         ((0, 0), [0, 2], (0, 3)), ((0, 2), [0, 2], (6, 8)), ((1, 1), [1], (3, 6))])
@@ -259,7 +304,7 @@ class TestShardBatch:
             paths.append((tmp_path / f"D{seed}.npy", w0))
         cubes = [np.load(p, mmap_mode="r") for p, _ in paths]
         mesh = Mesh(devices=(torch.device("cpu"),), shape={"dp": 2, "sp": 3, "tp": 1},
-                    group=object(), backend="gloo", group_ranks=tuple(range(6)),
+                    group=STAND_IN_GROUP, backend="gloo", group_ranks=tuple(range(6)),
                     coords=coords)
         Dt, wt = sharded.shard_batch(cubes, [w for _, w in paths], mesh)
         lo, hi = subints
@@ -270,11 +315,11 @@ class TestShardBatch:
 
     def test_more_sp_ranks_than_subints_raise_on_every_rank(self):
         mesh = Mesh(devices=(torch.device("cpu"),), shape={"dp": 1, "sp": 9, "tp": 1},
-                    group=object(), backend="gloo", group_ranks=tuple(range(9)), coords=None)
+                    group=STAND_IN_GROUP, backend="gloo", group_ranks=tuple(range(9)), coords=None)
         with pytest.raises(ValueError, match="would hold none"):
             sharded.shard_batch([_cube(99)[0]], [_cube(99)[1]], mesh)
 
     def test_a_rank_outside_the_mesh_uploads_nothing(self):
         mesh = Mesh(devices=(torch.device("cpu"),), shape={"dp": 1, "sp": 2, "tp": 1},
-                    group=object(), backend="gloo", group_ranks=(0, 1, 2), coords=None)
+                    group=STAND_IN_GROUP, backend="gloo", group_ranks=(0, 1, 2), coords=None)
         assert sharded.shard_batch([_cube(99)[0]], [_cube(99)[1]], mesh) == (None, None)

@@ -397,6 +397,20 @@ class TestBucketCostModel:
         monkeypatch.setenv("ICT_EXEC_ANALYSIS", "0")
         assert obs_memory.analyze_batch_route((1, 2, 3, 4), cfg) is None
 
+    def test_gauges_follow_the_dispatch_not_the_memo(self, monkeypatch):
+        # A bucket an earlier clean in the process analyzed: after a
+        # registry reset its next dispatch publishes the gauges again,
+        # whatever ran before in the process.
+        monkeypatch.delenv("ICT_EXEC_ANALYSIS", raising=False)
+        cfg, shape = _clean_cfg(), (2, 5, 7, 64)
+        got = obs_memory.analyze_batch_route(shape, cfg)
+        tracing.reset_counters()
+        assert obs_memory.analyze_batch_route(shape, cfg) == got
+        _, labeled = tracing.gauges_snapshot()
+        labels = (("shape_bucket", "2x5x7x64"),)
+        assert {k: labeled[(f"executable_{k}", labels)] for k in got} == {
+            k: float(v) for k, v in got.items()}
+
 
 class TestShadowAuditor:
     def test_sampling(self):

@@ -21,21 +21,26 @@ mode of the port on ``--device`` (default ``cuda``):
   ``pallas`` mode;
 - ``online``: seed-random blocks through an ``OnlineSession``, then the
   canonical finalize (:func:`run_online_case`, a copy of the test's);
+- ``sharded``: the cube through ``parallel/sharded.sharded_clean_single``
+  on ``make_mesh(8, devices=[device] * 8)``, eight logical devices of the
+  one device (``dp=4 x sp=2``: its subints in two blocks, each launching
+  the kernels on its own), as the JAX tool's 8-device mode (float32 only:
+  the batched route declines x64);
 - ``coalesced(k=3)``: three same-shape cubes of mixed seeds through the
   port's batched dispatch (``parallel/sharded.sharded_clean``; float32 only,
   as the batch has no x64 handling), each against its own oracle.
 
 ``--x64`` runs the float64 modes (stepwise, fused, chunked, online), as
-``JAX_ENABLE_X64=1`` does for the JAX tool.  The JAX tool's 8-device
-``sharded`` mode needs several cards and is not run (the tool says so).
+``JAX_ENABLE_X64=1`` does for the JAX tool.
 
 A mismatch writes a repro bundle (``obs/audit.write_repro_bundle`` under
 ``ICT_REPRO_DIR``, default ``./ict_repro``; replay it with
 ``tools_torch/replay_repro.py``) and the tool exits 1.  Per mode it prints
-the largest last-iteration score drift against the oracle (unit-floored
-relative, as ``obs/audit`` measures it) and the number of seeds whose
-template advanced by the sparse update at least once; these are reported,
-not gated.
+the seeds identical to the oracle, the largest last-iteration score drift
+against the oracle (unit-floored relative, as ``obs/audit`` measures it),
+the number of seeds whose template advanced by the sparse update at least
+once and the kernels' launches in that mode; drift and launches are
+reported, not gated.
 """
 
 from __future__ import annotations
@@ -144,11 +149,26 @@ def _mode_list(kw, block: int, x64: bool):
     return modes
 
 
+#: The kernels' launch counters a mode's record reads.
+KERNELS = ("fused_fit_moments", "ordered_template", "ordered_template_f64")
+
+
+def counts() -> dict:
+    """The sparse updates taken and each kernel's launches so far."""
+    from iterative_cleaner_tpu_torch.backends.torch_backend import sparse_template_candidate
+    from iterative_cleaner_tpu_torch.ops.fused_kernels import fused_fit_moments
+    from iterative_cleaner_tpu_torch.ops.template import build_template
+
+    return {"sparse": sparse_template_candidate.taken,
+            "fused_fit_moments": fused_fit_moments.launches,
+            "ordered_template": build_template.launches,
+            "ordered_template_f64": build_template.launches_f64}
+
+
 def run_seed(seed: int, x64: bool, device: str, stats: dict) -> tuple[list[str], dict, tuple]:
     """Every mode on one seed.  Returns (the modes that differ from the
     oracle, each mode's (weights, loops, converged, cfg), the inputs and the
     oracle's result)."""
-    from iterative_cleaner_tpu_torch.backends.torch_backend import sparse_template_candidate
     from iterative_cleaner_tpu_torch.config import CleanConfig
     from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
     from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
@@ -159,22 +179,28 @@ def run_seed(seed: int, x64: bool, device: str, stats: dict) -> tuple[list[str],
     block = int(np.random.default_rng(seed).integers(1, D.shape[0] + 1))
     results = {}
 
-    def record(name, cfg, weights, loops, converged, scores, sparse_before):
+    def record(name, cfg, weights, loops, converged, scores, before):
         results[name] = (np.asarray(weights), int(loops), bool(converged), cfg)
         key = name if name.startswith("coalesced") else name.split("(")[0]
-        st = stats.setdefault(key, {"drift": 0.0, "sparse_seeds": 0, "seeds": 0})
+        st = stats.setdefault(key, {"drift": 0.0, "sparse_seeds": 0, "seeds": 0,
+                                    "identical": 0, **dict.fromkeys(KERNELS, 0)})
         st["seeds"] += 1
+        st["identical"] += bool(np.array_equal(weights, res_np.weights)
+                                and loops == res_np.loops and converged == res_np.converged)
         if loops == res_np.loops and np.shape(scores) == np.shape(res_np.test_results):
             st["drift"] = max(st["drift"], score_drift(scores, res_np.test_results))
-        if sparse_template_candidate.taken > sparse_before:
+        now = counts()
+        if now["sparse"] > before["sparse"]:
             st["sparse_seeds"] += 1
+        for k in KERNELS:
+            st[k] += now[k] - before[k]
 
     for name, cfg in _mode_list(kw, block, x64):
         serial = name.startswith("chunked_serial")
         prior = os.environ.get("ICT_INGEST_DEPTH")
         if serial:
             os.environ["ICT_INGEST_DEPTH"] = "1"
-        before = sparse_template_candidate.taken
+        before = counts()
         try:
             r = clean_cube(D, w0, cfg, device=device)
         finally:
@@ -185,16 +211,25 @@ def run_seed(seed: int, x64: bool, device: str, stats: dict) -> tuple[list[str],
                     os.environ["ICT_INGEST_DEPTH"] = prior
         record(name, cfg, r.weights, r.loops, r.converged, r.test_results, before)
 
-    before = sparse_template_candidate.taken
+    before = counts()
     r_on = run_online_case(archive, kw, seed, x64=x64, device=device)
     record("online", CleanConfig(backend="torch", x64=x64, **kw), r_on.weights, r_on.loops,
            r_on.converged, r_on.test_results, before)
 
     if not x64:
+        from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
         from iterative_cleaner_tpu_torch.io.synthetic import make_archive
         from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
-        from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean
-        from iterative_cleaner_tpu_torch.backends.torch_backend import resolve_device
+        from iterative_cleaner_tpu_torch.parallel.sharded import (
+            sharded_clean,
+            sharded_clean_single,
+        )
+
+        cfg_sh = CleanConfig(backend="torch", **kw)
+        before = counts()
+        t_sh, w_sh, loops_sh, done_sh = sharded_clean_single(
+            D, w0, cfg_sh, make_mesh(8, devices=[resolve_device(device)] * 8))
+        record("sharded", cfg_sh, w_sh, loops_sh, done_sh, t_sh, before)
 
         # Three same-shape cubes of mixed seeds in one batched dispatch, each
         # against its own oracle: no result may bleed across the batch axis.
@@ -204,7 +239,7 @@ def run_seed(seed: int, x64: bool, device: str, stats: dict) -> tuple[list[str],
                                               nbin=D.shape[2], seed=seed * 7 + j))
             extras.append((Dj, w0j, clean_cube(Dj, w0j, CleanConfig(backend="numpy", **kw))))
         cfg_co = CleanConfig(backend="torch", **kw)
-        before = sparse_template_candidate.taken
+        before = counts()
         tb, wb, loops_b, done_b = sharded_clean(
             np.stack([D] + [e[0] for e in extras]), np.stack([w0] + [e[1] for e in extras]),
             cfg_co, make_mesh(devices=[resolve_device(device)]))
@@ -235,8 +270,9 @@ def main(argv: list[str] | None = None) -> int:
 
     device = resolve_device(args.device)
     print(f"fuzz sweep on {device}{' (x64)' if args.x64 else ''}: seeds {args.start}.."
-          f"{args.start + args.n_seeds - 1}; the 8-device sharded mode needs several "
-          "cards and is not run here", flush=True)
+          f"{args.start + args.n_seeds - 1}"
+          f"{'' if args.x64 else '; the sharded mode on 8 logical devices of ' + str(device)}",
+          flush=True)
     stats: dict = {}
     failures = []
     for seed in range(args.start, args.start + args.n_seeds):
@@ -258,15 +294,12 @@ def main(argv: list[str] | None = None) -> int:
               f"zap={int((res_np.weights == 0).sum())} "
               f"{'FAIL ' + ','.join(bad) if bad else 'ok'}", flush=True)
     for name, st in stats.items():
-        print(f"mode {name}: {st['seeds']} seeds, max score drift vs the oracle "
-              f"{st['drift']:.3e}, sparse template update on {st['sparse_seeds']} seeds",
-              flush=True)
-    from iterative_cleaner_tpu_torch.ops.fused_kernels import fused_fit_moments
-    from iterative_cleaner_tpu_torch.ops.template import build_template
-
-    print(f"launches: fused_fit_moments {fused_fit_moments.launches}, ordered_template "
-          f"{build_template.launches}, ordered_template_f64 {build_template.launches_f64}",
-          flush=True)
+        print(f"mode {name}: {st['seeds']} seeds, {st['identical']} identical to the oracle, "
+              f"max score drift vs the oracle {st['drift']:.3e}, sparse template update on "
+              f"{st['sparse_seeds']} seeds, launches "
+              + ", ".join(f"{k} {st[k]}" for k in KERNELS), flush=True)
+    total = counts()
+    print("launches: " + ", ".join(f"{k} {total[k]}" for k in KERNELS), flush=True)
     n = args.n_seeds
     print(f"\n{n - len(failures)}/{n} seeds identical to the oracle across all modes")
     for seed, bad in failures:

@@ -15,7 +15,8 @@ exact CleanConfig, versions and trace context.  The tool re-executes it:
    ``--device``, default ``cuda``) live — a divergence the code causes
    CONFIRMS, one that came from transient corruption or an injected fault in
    the capturing process CLEARS; a bundle of the batched route
-   (``coalesced`` or ``sharded`` in its route) also replays that route;
+   (``coalesced`` or ``sharded`` in its route) also replays that route, a
+   ``sharded`` one on the fuzz's 8 logical devices of ``--device``;
 3. the **recorded served mask**, when the bundle has one, against the fresh
    oracle.
 
@@ -90,8 +91,9 @@ def replay(bundle_dir: str, device: str = "cuda") -> dict:
         from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
         from iterative_cleaner_tpu_torch.parallel.sharded import sharded_clean_single
 
+        n = 8 if "sharded" in route else 1
         _t, w_sh, _loops, _done = sharded_clean_single(
-            D, w0, live_cfg.replace(chunk_block=0, fused=False), make_mesh(devices=[dev]))
+            D, w0, live_cfg.replace(chunk_block=0, fused=False), make_mesh(devices=[dev] * n))
         w_sh, _nbs, _nbc = finalize_weights(np.asarray(w_sh), live_cfg)
         live_diffs["sharded"] = int(np.sum(w_sh != oracle_w))
     n_live = max(live_diffs.values())
