@@ -1684,7 +1684,7 @@ def phase_obs(lofar, entries) -> dict:
     check(host["fused_fit_moments"] >= loops, f"host spans {host}")
     log(f"  --trace capture ({os.path.getsize(_trace_file(tdir)) / 1e6:.1f} MB): device "
         f"kernels {FUSED_KERNEL} x{len(fused_dev)} (loops + the warm-up's), {TEMPLATE_KERNEL} "
-        f"x{len(tmpl_dev)}; host spans (this thread's; the warm-up runs on its own) "
+        f"x{len(tmpl_dev)}; host spans (every thread's, the warm-up's included) "
         f"fused_fit_moments x{host['fused_fit_moments']}, ordered_template "
         f"x{host['ordered_template']}")
     # The loop's window: from its first template build (the warm-up's comes

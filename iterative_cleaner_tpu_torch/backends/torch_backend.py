@@ -38,6 +38,7 @@ from iterative_cleaner_tpu_torch.ops.stats import (
     fft_diagnostic,
     scale_and_combine,
 )
+from iterative_cleaner_tpu_torch.obs import tracing
 from iterative_cleaner_tpu_torch.obs.tracing import compile_scope, shape_bucket_label
 from iterative_cleaner_tpu_torch.ops.template import build_template, fit_and_subtract
 
@@ -181,6 +182,16 @@ def to_device(a, device, dtype=torch.float32) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def upload(device, dtype, *arrays) -> list[torch.Tensor]:
+    """:func:`to_device` of each host array, in the ``clean_upload`` phase,
+    counting the bytes copied (``clean_upload_bytes``, after the
+    conversion to ``dtype``)."""
+    with tracing.phase("clean_upload"):
+        out = [to_device(a, device, dtype) for a in arrays]
+        tracing.count("clean_upload_bytes", float(sum(t.nbytes for t in out)))
+    return out
+
+
 def kernel_for(cfg: CleanConfig, nbin: int, device: torch.device,
                want_residual: bool = False) -> bool:
     """The fit/moments route a clean dispatches with on ``device``; a
@@ -217,8 +228,7 @@ class TorchCleaner:
         self.cfg = cfg
         self._dtype = compute_dtype(cfg)
         self._use_kernel = kernel_for(cfg, D.shape[-1], self.device)
-        self._D = to_device(D, self.device, self._dtype)
-        self._w0 = to_device(w0, self.device, self._dtype)
+        self._D, self._w0 = upload(self.device, self._dtype, D, w0)
         self._valid = self._w0 != 0
         self._residual = None
         self._tmpl = None     # carried template (device) …
@@ -309,16 +319,17 @@ def run_fused(D, w0, cfg: CleanConfig, want_residual: bool = False, device="cuda
     first), fetched once, together with the scores, at the end."""
     dev = device_for(device)
     dtype = compute_dtype(cfg)
-    D_t, w0_t = to_device(D, dev, dtype), to_device(w0, dev, dtype)
-    test, _w, loops, done, x, resid, history = fused_clean(
-        D_t, w0_t, w0_t != 0, float(cfg.chanthresh), float(cfg.subintthresh),
-        max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
-        want_residual=want_residual,
-        use_kernel=kernel_for(cfg, D_t.shape[-1], dev, want_residual),
-        # A residual must come from a dense template (bit-exact output; the
-        # sparse update's envelope is documented for scores only).
-        incremental=cfg.incremental_template and not want_residual)
-    fetched = torch.cat((test[None], history[: x + 1])).cpu().numpy()
+    D_t, w0_t = upload(dev, dtype, D, w0)
+    use_kernel = kernel_for(cfg, D_t.shape[-1], dev, want_residual)
+    with tracing.phase("clean_loop"):
+        test, _w, loops, done, x, resid, history = fused_clean(
+            D_t, w0_t, w0_t != 0, float(cfg.chanthresh), float(cfg.subintthresh),
+            max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
+            want_residual=want_residual, use_kernel=use_kernel,
+            # A residual must come from a dense template (bit-exact output;
+            # the sparse update's envelope is documented for scores only).
+            incremental=cfg.incremental_template and not want_residual)
+        fetched = torch.cat((test[None], history[: x + 1])).cpu().numpy()
     hist = fetched[1:]
     out = (fetched[0], hist[-1].copy(), loops, done, x, hist)
     if want_residual:
@@ -391,21 +402,22 @@ def start_precompile(shape, cfg: CleanConfig, want_residual: bool = False,
         )
 
         try:
-            if cfg.auto_shard and chunk_block_subints(shape, cfg, dev, want_residual):
-                return  # the chunked route: nothing cube-sized to warm
-            hbm = device_memory_bytes(dev)
-            use_kernel = resolve_use_kernel(cfg, int(shape[-1]), dev, want_residual)
-            if hbm is not None and (2 * clean_working_set_bytes(shape, cfg, use_kernel)
-                                    > hbm * HBM_USABLE_FRACTION):
-                return
-            template_count = "launches_f64" if cfg.x64 else "launches"
-            before = (fused_fit_moments.launches, getattr(build_template, template_count),
-                      sparse_template_candidate.taken)
-            with compile_scope(shape_bucket_label(shape)):
-                precompile_for(shape, cfg, want_residual, dev)
-            th.launches = fused_fit_moments.launches - before[0]
-            th.template_launches = getattr(build_template, template_count) - before[1]
-            th.sparse_steps = sparse_template_candidate.taken - before[2]
+            with tracing.phase("clean_warmup"):
+                if cfg.auto_shard and chunk_block_subints(shape, cfg, dev, want_residual):
+                    return  # the chunked route: nothing cube-sized to warm
+                hbm = device_memory_bytes(dev)
+                use_kernel = resolve_use_kernel(cfg, int(shape[-1]), dev, want_residual)
+                if hbm is not None and (2 * clean_working_set_bytes(shape, cfg, use_kernel)
+                                        > hbm * HBM_USABLE_FRACTION):
+                    return
+                template_count = "launches_f64" if cfg.x64 else "launches"
+                before = (fused_fit_moments.launches, getattr(build_template, template_count),
+                          sparse_template_candidate.taken)
+                with compile_scope(shape_bucket_label(shape)):
+                    precompile_for(shape, cfg, want_residual, dev)
+                th.launches = fused_fit_moments.launches - before[0]
+                th.template_launches = getattr(build_template, template_count) - before[1]
+                th.sparse_steps = sparse_template_candidate.taken - before[2]
         except Exception as exc:  # noqa: BLE001 — warm-up only; the real call raises
             th.error = exc
 

@@ -25,6 +25,7 @@ compile per shape.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import warnings
 from dataclasses import dataclass, field
@@ -34,7 +35,7 @@ import numpy as np
 
 from iterative_cleaner_tpu_torch.backends.base import make_backend
 from iterative_cleaner_tpu_torch.config import CleanConfig
-from iterative_cleaner_tpu_torch.obs import events, forensics
+from iterative_cleaner_tpu_torch.obs import events, forensics, tracing
 from iterative_cleaner_tpu_torch.obs import memory as obs_memory
 from iterative_cleaner_tpu_torch.obs.tracing import (
     StepTimer,
@@ -202,8 +203,9 @@ def _parity_warnings(D: np.ndarray, w0: np.ndarray) -> None:
     # fit overflows <t,t> while its f64-promoted ma.std stays finite).  Only
     # finite magnitudes warn: ±inf/NaN poison both pipelines alike.  The
     # scan is two host passes over the cube, hence the size cap.
-    peak = max(-float(np.nanmin(D)), float(np.nanmax(D))) * max(
-        1.0, abs(float(np.nanmax(w0))), abs(float(np.nanmin(w0))))
+    with tracing.phase("clean_parity_scan"):
+        peak = max(-float(np.nanmin(D)), float(np.nanmax(D))) * max(
+            1.0, abs(float(np.nanmax(w0))), abs(float(np.nanmin(w0))))
     if np.isfinite(peak) and peak > 1e17:
         warnings.warn(
             f"data magnitude ~{peak:.1e} approaches the f32 dynamic "
@@ -334,7 +336,9 @@ def clean_cube(
                         shape=list(D.shape))
         backend = make_backend(D, w0, cfg, device=device)
     state = LoopState.start(w0)
-    with compile_scope(bucket):
+    # The device routes' loop; the numpy oracle (an audit's replay) is not.
+    loop = tracing.phase("clean_loop") if cfg.backend == "torch" else contextlib.nullcontext()
+    with compile_scope(bucket), loop:
         state.run(backend, cfg.max_iter, progress=progress)
     if cfg.backend == "torch":
         obs_memory.observe_route("chunked" if chunk_block is not None else "stepwise")

@@ -25,6 +25,7 @@ from iterative_cleaner_tpu_torch.core.cleaner import (
     find_bad_parts,
 )
 from iterative_cleaner_tpu_torch.io.base import STATE_INTENSITY, Archive
+from iterative_cleaner_tpu_torch.obs import tracing
 from iterative_cleaner_tpu_torch.ops.preprocess import preprocess, pscrunch, redisperse_cube
 
 @dataclass
@@ -82,50 +83,52 @@ class SurgicalCleaner:
         D, w0 = preprocess(archive)
         if warm is not None:
             # A warm-up still running must not race the real call.
-            warm.join()
+            with tracing.phase("clean_warmup_wait"):
+                warm.join()
         result = clean_cube(D, w0, cfg, progress=progress,
                             want_residual=cfg.unload_res, device=self.device)
-        final_w, n_bs, n_bc = finalize_weights(result.weights, cfg)
-        cleaned = apply_output_policy(archive, final_w, cfg)
+        with tracing.phase("clean_finalize"):
+            final_w, n_bs, n_bc = finalize_weights(result.weights, cfg)
+            cleaned = apply_output_policy(archive, final_w, cfg)
 
-        residual = None
-        if cfg.unload_res and result.residual is not None:
-            # The residual archive lives in the original dispersed frame
-            # with the original weights.
-            res_cube = redisperse_cube(archive, result.residual)
-            residual = replace(
-                archive,
-                data=np.asarray(res_cube, np.float32)[:, None],
-                weights=w0.copy(),
-                state=STATE_INTENSITY,
-                dedispersed=archive.dedispersed,
+            residual = None
+            if cfg.unload_res and result.residual is not None:
+                # The residual archive lives in the original dispersed frame
+                # with the original weights.
+                res_cube = redisperse_cube(archive, result.residual)
+                residual = replace(
+                    archive,
+                    data=np.asarray(res_cube, np.float32)[:, None],
+                    weights=w0.copy(),
+                    state=STATE_INTENSITY,
+                    dedispersed=archive.dedispersed,
+                )
+
+            audit_rec = None
+            if cfg.audit and cfg.backend != "numpy":
+                # The audit never alters the outputs already computed above.
+                from iterative_cleaner_tpu_torch.obs import audit as obs_audit
+
+                route = ("fused" if cfg.fused else
+                         "chunked" if cfg.chunk_block else "stepwise")
+                audit_rec, oracle_w = obs_audit.run_audit(
+                    D, w0, cfg, final_w, scores_served=result.test_results,
+                    route=route)
+                if not audit_rec["mask_identical"]:
+                    audit_rec["bundle"] = obs_audit.write_repro_bundle(
+                        obs_audit.default_repro_dir(), D=D, w0=w0, cfg=cfg,
+                        reason=f"--audit divergence on the {route} route",
+                        weights_served=final_w, weights_oracle=oracle_w,
+                        scores_served=result.test_results, route=route,
+                        record=audit_rec)
+            elif cfg.audit:
+                audit_rec = {"skipped": "backend is the numpy oracle"}
+
+            return SurgicalOutput(
+                cleaned=cleaned,
+                result=result,
+                residual=residual,
+                n_bad_subints=n_bs,
+                n_bad_channels=n_bc,
+                audit=audit_rec,
             )
-
-        audit_rec = None
-        if cfg.audit and cfg.backend != "numpy":
-            # The audit never alters the outputs already computed above.
-            from iterative_cleaner_tpu_torch.obs import audit as obs_audit
-
-            route = ("fused" if cfg.fused else
-                     "chunked" if cfg.chunk_block else "stepwise")
-            audit_rec, oracle_w = obs_audit.run_audit(
-                D, w0, cfg, final_w, scores_served=result.test_results,
-                route=route)
-            if not audit_rec["mask_identical"]:
-                audit_rec["bundle"] = obs_audit.write_repro_bundle(
-                    obs_audit.default_repro_dir(), D=D, w0=w0, cfg=cfg,
-                    reason=f"--audit divergence on the {route} route",
-                    weights_served=final_w, weights_oracle=oracle_w,
-                    scores_served=result.test_results, route=route,
-                    record=audit_rec)
-        elif cfg.audit:
-            audit_rec = {"skipped": "backend is the numpy oracle"}
-
-        return SurgicalOutput(
-            cleaned=cleaned,
-            result=result,
-            residual=residual,
-            n_bad_subints=n_bs,
-            n_bad_channels=n_bc,
-            audit=audit_rec,
-        )

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from iterative_cleaner_tpu_torch.config import CleanConfig
+from iterative_cleaner_tpu_torch.obs import tracing
 
 # Chunking decisions already announced on stderr (once per distinct one).
 _announced_chunkings: set = set()
@@ -66,7 +67,7 @@ def sweep_thresholds(
     from iterative_cleaner_tpu_torch.backends.torch_backend import (
         compute_dtype,
         device_for,
-        to_device,
+        upload,
     )
     from iterative_cleaner_tpu_torch.parallel.autoshard import (
         HBM_USABLE_FRACTION,
@@ -110,7 +111,7 @@ def sweep_thresholds(
                 f"sweep: running {len(pairs)} pairs in chunks of {chunk} "
                 "(full grid would exceed device memory)", file=sys.stderr)
 
-    Dt, w0t = to_device(D, dev, dtype), to_device(w0, dev, dtype)
+    Dt, w0t = upload(dev, dtype, D, w0)
     valid = w0t != 0
     nsub, nchan = w0t.shape
     points: list[SweepPoint] = []
@@ -119,28 +120,30 @@ def sweep_thresholds(
         a = len(part)
         cts = torch.tensor([float(c) for c, _ in part], dtype=dtype, device=dev)
         sts = torch.tensor([float(s) for _, s in part], dtype=dtype, device=dev)
-        _test, w_final, loops, done, _x, _r, _hist = batched_fused_clean(
-            Dt.expand(a, *Dt.shape), w0t.expand(a, nsub, nchan),
-            valid.expand(a, nsub, nchan), cts, sts,
-            max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
-            use_kernel=False)
-        del _test, _hist
-        # One fetch: loops and done are small integers, exact in the type.
-        packed = torch.cat((w_final.reshape(-1), loops.to(w_final.dtype),
-                            done.to(w_final.dtype))).cpu().numpy()
-        n = a * nsub * nchan
-        masks = packed[:n].reshape(a, nsub, nchan)
-        points.extend(
-            SweepPoint(
-                chanthresh=float(c),
-                subintthresh=float(s),
-                rfi_frac=float((masks[k] == 0).mean()),
-                loops=int(packed[n + k]),
-                converged=bool(packed[n + a + k]),
-                weights=masks[k].copy(),
+        with tracing.phase("clean_loop"):
+            _test, w_final, loops, done, _x, _r, _hist = batched_fused_clean(
+                Dt.expand(a, *Dt.shape), w0t.expand(a, nsub, nchan),
+                valid.expand(a, nsub, nchan), cts, sts,
+                max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
+                use_kernel=False)
+            del _test, _hist
+            # One fetch: loops and done are small integers, exact in the type.
+            packed = torch.cat((w_final.reshape(-1), loops.to(w_final.dtype),
+                                done.to(w_final.dtype))).cpu().numpy()
+        with tracing.phase("clean_finalize"):
+            n = a * nsub * nchan
+            masks = packed[:n].reshape(a, nsub, nchan)
+            points.extend(
+                SweepPoint(
+                    chanthresh=float(c),
+                    subintthresh=float(s),
+                    rfi_frac=float((masks[k] == 0).mean()),
+                    loops=int(packed[n + k]),
+                    converged=bool(packed[n + a + k]),
+                    weights=masks[k].copy(),
+                )
+                for k, (c, s) in enumerate(part)
             )
-            for k, (c, s) in enumerate(part)
-        )
     return points
 
 

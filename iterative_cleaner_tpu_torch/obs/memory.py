@@ -152,13 +152,20 @@ def observe_route(route: str) -> None:
     (stepwise / fused / chunked): called right after a route finishes,
     while its peak is the freshest thing in the allocator's peak.  The
     gauge keeps the max ever seen per route — peaks are ratchets — and the
-    allocator's own peak is left as it is."""
+    allocator's own peak is left as it is.  It reads only the allocator's
+    counters (``torch.cuda.memory_stats``), never ``mem_get_info``: it runs
+    on the clean's path, after every route."""
     try:
-        snap = device_snapshot()
-        if not snap:
+        if not backend_live():
             return
-        peak = max(rec["peak_bytes_in_use"] for rec in snap)
-        in_use = max(rec["bytes_in_use"] for rec in snap)
+        import torch
+
+        cards = [torch.cuda.memory_stats(i)
+                 for i in range(torch.cuda.device_count())]  # ict: backend-init-ok(gated on backend_live() above)
+        if not cards:
+            return
+        peak = max(int(s.get("allocated_bytes.all.peak", 0)) for s in cards)
+        in_use = max(int(s.get("allocated_bytes.all.current", 0)) for s in cards)
         labels = {"route": route}
         tracing.max_gauge_labeled("route_hbm_peak_bytes", labels, float(peak))
         tracing.set_gauge_labeled("route_hbm_bytes_in_use", labels,

@@ -26,9 +26,10 @@ active is refused (RuntimeError), and :func:`maybe_capture` skips rather
 than fail the work it wraps.  A profiler must be stopped on the thread
 that started it, so a bounded capture runs on a thread of its own, which
 starts the profiler, waits for :func:`stop` or the deadline, stops it and
-writes the trace; it records every thread's host activity where this
-torch offers that (``profile_all_threads``), and the device activity of
-the whole process in any case.  The profiler is prepared on the thread
+writes the trace.  Both shapes record every thread's host activity where
+this torch offers that (``profile_all_threads``: the warm-up thread's
+``clean_warmup`` span, for one), and the device activity of the whole
+process in any case.  The profiler is prepared on the thread
 that calls :func:`start`: Kineto sets itself up once a process, at the
 first preparation, and only on the thread that imported torch does it
 do so silently; from any other thread it prints "External init callback
@@ -74,20 +75,20 @@ def active() -> dict | None:
         return {k: _active[k] for k in ("dir", "started_s", "until_s")}
 
 
-def _profiler(device, all_threads: bool):
-    """A ``torch.profiler.profile`` of the host, plus CUDA on the card."""
+def _profiler(device):
+    """A ``torch.profiler.profile`` of every thread's host activity, plus
+    CUDA on the card."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda" and torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     kw = {}
-    if all_threads:
-        try:
-            kw["experimental_config"] = torch.profiler._ExperimentalConfig(
-                profile_all_threads=True)
-        except (AttributeError, TypeError):
-            pass    # this torch records the starting thread's host ops only
+    try:
+        kw["experimental_config"] = torch.profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass    # this torch records the starting thread's host ops only
     return torch.profiler.profile(activities=acts, **kw)
 
 
@@ -139,7 +140,7 @@ class _Capture(threading.Thread):
 
     def prepare(self) -> None:
         """Make the profiler and prepare its trace, on the calling thread."""
-        self.prof = _profiler(self.device, all_threads=True)
+        self.prof = _profiler(self.device)
         self.prof.prepare_trace()
 
     def run(self) -> None:
@@ -290,7 +291,7 @@ def profile_trace(trace_dir: str | None, device="cuda"):
         yield
         return
     global _active
-    prof = _profiler(device, all_threads=False)
+    prof = _profiler(device)
     with _lock:
         _active = _claim(trace_dir, None, prof)
     try:

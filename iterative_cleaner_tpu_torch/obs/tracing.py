@@ -7,7 +7,7 @@ counters, labeled counters and gauges, ``observe_phase`` / ``phase``,
 ``StepTimer``.  ``observe_phase`` keeps the Prometheus summary convention
 (``<name>_s`` total seconds + ``<name>_n`` count).
 
-One difference.  The JAX package accounts XLA's backend compiles through a
+Two differences.  The JAX package accounts XLA's backend compiles through a
 ``jax.monitoring`` listener (``install_compile_listener``, phase
 ``jax_compile``).  The port's only runtime compile is the ``nvcc`` build of
 a kernel library (``ops/cuda_build.py``), which calls
@@ -15,6 +15,27 @@ a kernel library (``ops/cuda_build.py``), which calls
 ``jax_compile``, and ``compiles_total`` / ``compile_seconds_total``
 ``{shape_bucket}`` are counted as in the JAX package, under the
 :func:`compile_scope` in force on the building thread.
+
+And :func:`phase` also opens a ``torch.profiler.record_function`` span of
+its name on the calling thread, so a profiler capture (the CLI's
+``--trace``, ``obs/profiling``'s bounded capture, the benchmark's traced
+runs) shows each phase on the clock it aligns the card's kernels and
+copies to.  With no profiler listening the span costs one enter and exit.
+The phases of a clean, each on the thread that runs it:
+
+- ``clean_preprocess`` — ``ops/preprocess.preprocess``, either route;
+- ``clean_warmup`` — the warm-up of ``backends/torch_backend.start_precompile``,
+  on its ``ict-precompile`` thread; ``clean_warmup_wait`` — the caller's
+  join of that thread (``models/surgical.SurgicalCleaner.clean``);
+- ``clean_parity_scan`` — ``core/cleaner._parity_warnings``'s magnitude scan
+  of the host cube, when it scans;
+- ``clean_upload`` — the copies of the cube and its weights to the device
+  (``backends/torch_backend.upload``: the stepwise and fused routes, the
+  sweep, the chunked route's weights); the counter ``clean_upload_bytes``
+  adds the bytes copied;
+- ``clean_loop`` — the convergence loop up to its last host fetch;
+- ``clean_finalize`` — what follows the loop: the surgical cleaner's
+  bad-parts sweep, output policy, residual and audit; the sweep's points.
 
 Everything is process-global on purpose: every layer (driver, batch
 dispatch, online session) accounts into one place without plumbing a
@@ -128,18 +149,21 @@ def observe_phase(name: str, seconds: float, error: bool = False) -> None:
 
 @contextlib.contextmanager
 def phase(name: str):
-    """Time a block into :func:`observe_phase`.  Exceptions still count in
-    the totals (see observe_phase) AND bump ``<name>_err_n``, so failure
-    rates are first-class on ``/metrics`` instead of masquerading as
-    successes."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    except BaseException:
-        observe_phase(name, time.perf_counter() - t0, error=True)
-        raise
-    else:
-        observe_phase(name, time.perf_counter() - t0)
+    """Time a block into :func:`observe_phase`, inside a profiler span of
+    the same name.  Exceptions still count in the totals (see
+    observe_phase) AND bump ``<name>_err_n``, so failure rates are
+    first-class on ``/metrics`` instead of masquerading as successes."""
+    from torch.profiler import record_function
+
+    with record_function(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        except BaseException:
+            observe_phase(name, time.perf_counter() - t0, error=True)
+            raise
+        else:
+            observe_phase(name, time.perf_counter() - t0)
 
 
 def counters_snapshot() -> dict[str, float]:
@@ -153,13 +177,6 @@ def labeled_snapshot() -> dict[tuple[str, tuple[tuple[str, str], ...]], float]:
     """Point-in-time copy of the labeled-counter registry."""
     with _counters_lock:
         return dict(sorted(_labeled.items()))
-
-
-def histograms_snapshot() -> dict[str, list[int]]:
-    """Point-in-time copy of every phase histogram (per-bucket counts, NOT
-    cumulative; the Prometheus renderer accumulates)."""
-    with _counters_lock:
-        return {k: list(v) for k, v in sorted(_hists.items())}
 
 
 def registry_snapshot() -> tuple[dict, dict, dict, dict, dict]:

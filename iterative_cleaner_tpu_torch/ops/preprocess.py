@@ -100,24 +100,26 @@ def preprocess(archive: Archive, prefer_native: bool = True) -> tuple[np.ndarray
     float32 cube (nsub, nchan, nbin) and the frozen original weights.
 
     Uses the C++/OpenMP host runtime when it builds (bit-identical output,
-    ``tests/test_torch_native.py``); falls back to the numpy path."""
-    if prefer_native:
-        from iterative_cleaner_tpu_torch import native
+    ``tests/test_torch_native.py``); falls back to the numpy path.  Either
+    route runs in the ``clean_preprocess`` phase."""
+    with tracing.phase("clean_preprocess"):
+        if prefer_native:
+            from iterative_cleaner_tpu_torch import native
 
-        out = native.preprocess_native(archive)
-        if out is not None:
-            tracing.count("preprocess_native")
-            return out
-    tracing.count("preprocess_numpy")
-    cube = pscrunch(archive.data, archive.state).astype(np.float32)
-    if not archive.dedispersed:
-        shifts = dispersion_shifts(
-            archive.freqs, archive.dm, archive.period, archive.nbin, archive.centre_frequency
-        )
-        cube = roll_cube(cube, shifts)
-    w0 = archive.weights.astype(np.float32)
-    cube = remove_baseline(cube, w0)
-    return np.ascontiguousarray(cube, dtype=np.float32), w0
+            out = native.preprocess_native(archive)
+            if out is not None:
+                tracing.count("preprocess_native")
+                return out
+        tracing.count("preprocess_numpy")
+        cube = pscrunch(archive.data, archive.state).astype(np.float32)
+        if not archive.dedispersed:
+            shifts = dispersion_shifts(
+                archive.freqs, archive.dm, archive.period, archive.nbin, archive.centre_frequency
+            )
+            cube = roll_cube(cube, shifts)
+        w0 = archive.weights.astype(np.float32)
+        cube = remove_baseline(cube, w0)
+        return np.ascontiguousarray(cube, dtype=np.float32), w0
 
 
 def redisperse_cube(archive: Archive, cube: np.ndarray) -> np.ndarray:

@@ -46,6 +46,7 @@ from iterative_cleaner_tpu_torch.backends.torch_backend import (
     kernel_for,
     note_sparse_step,
     to_device,
+    upload,
 )
 from iterative_cleaner_tpu_torch.config import CleanConfig
 from iterative_cleaner_tpu_torch.ingest.pipeline import SlabUploader, stream_depth
@@ -88,7 +89,7 @@ class ChunkedTorchCleaner:
         self._dtype = compute_dtype(cfg)
         # Host-resident by design: the whole cube never goes to the device.
         self._D = np.ascontiguousarray(D, dtype=np.float64 if cfg.x64 else np.float32)  # ict: f64-ok(explicit --x64 opt-in)
-        self._w0 = to_device(w0, self.device, self._dtype)
+        self._w0 = upload(self.device, self._dtype, w0)[0]
         self._valid = self._w0 != 0
         self._use_kernel = kernel_for(cfg, self._D.shape[-1], self.device)
         self._depth = stream_depth() if ingest_depth is None else max(1, int(ingest_depth))

@@ -582,9 +582,10 @@ def _run_mini_fleet(pkg, start, tmp, paths):
     drains; jobs go in through the router, ``a`` is stopped with its jobs
     parked and the router fails them over.  Returns the masks, counts,
     the router's family names and ``fleet_top``'s reply.  The package's
-    process-wide registry starts empty, so the replicas' families are
-    this traffic's alone, and ``b`` flushes each cube as it lands (bucket
-    cap 1), so no family follows the loaders' timing.  The JAX package
+    process-wide registry and ingest statistics start empty, so the
+    replicas' families are this traffic's alone, and ``b`` flushes each
+    cube as it lands (bucket cap 1), so no family follows the loaders'
+    timing.  The JAX package
     publishes a bucket's ``executable_*`` gauges (and the router its
     ``fleet_capacity_bucket_cost_bytes`` from them) only when it first
     analyzes the bucket in the process, so its memo of analyses starts
@@ -592,6 +593,10 @@ def _run_mini_fleet(pkg, start, tmp, paths):
     tmp.mkdir(parents=True, exist_ok=True)
     tracing = _mod(pkg, "obs.tracing")
     tracing.reset_counters()
+    # A replica publishes ``ingest_last_overlap_efficiency`` once the
+    # process's ingest pipeline has streamed blocks, which an earlier test in
+    # the same process may have done for one package and not the other.
+    _mod(pkg, "ingest.pipeline").reset_stats()
     if pkg == PKGS[0]:
         _mod(pkg, "obs.memory")._exec_registry.clear()
     svc_a = start(tmp, "mf-a", deadline_s=3600.0, bucket_cap=8)
@@ -689,10 +694,11 @@ def test_mini_fleet_masks_match_jax_and_oracle_through_failover(mini_fleets):
 #: Replica families that only one backend exports (each also federated
 #: as ``ict_fleet_<name>``): the JAX replicas' XLA compile, compile-cache
 #: and executable-analysis accounting, and the port replicas' native
-#: preprocess counter.  Every other family must match by name.
+#: preprocess counter and the phases of a clean (``clean_*``, from
+#: ``obs/tracing.phase``).  Every other family must match by name.
 BACKEND_ONLY = re.compile(
     r"^ict_(fleet_)?(compile_|compiles_total|jax_compile_|exec_analysis_"
-    r"|executable_temp_bytes|persistent_|preprocess_native)")
+    r"|executable_temp_bytes|persistent_|preprocess_native|clean_)")
 
 
 @pytest.mark.parametrize("route", ["/metrics", "/fleet/metrics",
