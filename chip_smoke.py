@@ -44,7 +44,12 @@ exits non-zero:
    version in float64 on both load paths at ragged shapes, a continued sum
    and a batch; the float64 chain probe; at LOFAR in float64 beside its byte
    bound (twice the float32 bytes), its chain floor and cuBLAS's float64
-   matrix-vector product;
+   matrix-vector product.  The device preprocess (``csrc/preprocess.cu``:
+   dedispersion, the float64 total profile, the baseline window, the
+   baseline removal and the peak) at LOFAR on the seed-42 raw archive, bit
+   for bit with the native host pass and with its plain twin, timed a call
+   and back to back, each kernel's device time, beside its byte bound and
+   the float64 total's chain floor (the float64 chain probe's time per add);
 4. main path — writes the seed-42 synthetic 256 x 1024 x 1024 archive,
    cleans it through ``iterative_cleaner_tpu_torch.cli.main`` with the
    defaults (torch backend, cuda, auto kernel, incremental template, the
@@ -421,7 +426,7 @@ def phase_environment():
 
 
 #: The kernel sources of the main path (csrc/<stem>.cu).
-KERNEL_STEMS = ("fused_fit_moments", "ordered_template")
+KERNEL_STEMS = ("fused_fit_moments", "ordered_template", "preprocess")
 
 
 def phase_build():
@@ -1215,6 +1220,95 @@ def phase_template_f64():
         "chunk_block": {"shape": list(block), "ms": chunk_ms, "plain_ms": chunk_plain,
                         "library_ms": chunk_lib, "bound_ms": cb, "bound_by": cb_by,
                         "chain_floor_ms": block[0] * nchan * t_add_ms},
+    }
+
+
+def phase_preprocess(lofar_prep, t_add_ns: float) -> dict:
+    """The device preprocess at LOFAR: the seed-42 raw archive through
+    ``preprocess(ar, device="cuda")`` against the native host pass bit for
+    bit (its peak against the native cube's ``nanmin`` / ``nanmax``) and
+    against the plain twin on the same plane; the kernels on the uploaded
+    plane (the upload left out) a call and back to back, each kernel's
+    device time from a profiler, beside the bytes the cube needs (read and
+    written once, 2 GiB) and the float64 total's chain floor (``nsub x
+    nchan`` dependent adds at ``t_add_ns``, phase 3's float64 chain probe)."""
+    import numpy as np
+    import torch
+
+    from iterative_cleaner_tpu_torch import native
+    from iterative_cleaner_tpu_torch.ops import preprocess as pp
+
+    ar = lofar_prep.result()[0]
+    nsub, nchan, nbin = LOFAR
+    t0 = time.perf_counter()
+    want, _ = native.preprocess_native(ar)
+    native_s = time.perf_counter() - t0
+    D, _w0, peak = pp.preprocess(ar, device="cuda")
+    got = D.cpu().numpy()
+    check(got.tobytes() == want.tobytes(), f"device preprocess at {LOFAR} != the native pass")
+    check(peak.read() == (float(want.min()), float(want.max())),
+          f"device preprocess peak {peak.read()} != the native cube's")
+
+    shifts = pp.archive_shifts(ar)
+    w = torch.from_numpy(np.array(ar.weights, np.float32)).cuda()
+    sh = torch.from_numpy(shifts).cuda()
+    width = pp.baseline_width(nbin)
+    plane = torch.from_numpy(np.ascontiguousarray(ar.data[:, 0])).cuda()
+    twin = plane.clone()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    pp.preprocess_plane_plain(twin, w, sh, width)
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    check(torch.equal(twin, D), f"the plain twin at {LOFAR} != the kernels")
+
+    buf = plane.clone()
+
+    def call():
+        pp.preprocess_plane(buf, w, sh, width)
+
+    ms = _time_ms(call, runs=20)
+    device_ms = _device_ms(call, runs=20)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()  # ict: backend-init-ok(phase 1 made CUDA live)
+    per_kernel = {}
+    for e in prof.key_averages():
+        name = re.search(r"preprocess_\w+_kernel(<\w+>)?", e.key)
+        if name and e.count:
+            total_us = getattr(e, "device_time_total", None) or e.cuda_time_total
+            per_kernel[name.group(0)] = total_us / e.count / 1e3
+    bytes_moved = 2 * plane.nbytes
+    times = {"bytes": bytes_moved / PEAK_BYTES_PER_S * 1e3,
+             "chain": nsub * nchan * t_add_ns * 1e-6}
+    bound_by = max(times, key=times.get)
+    log(f"preprocess at {LOFAR}: ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={times[bound_by]:.4f} ({bound_by}; bytes {times['bytes']:.4f} for "
+        f"{bytes_moved / 2**30:.0f} GiB, chain floor {times['chain']:.4f}); the native host "
+        f"pass {native_s * 1e3:.1f} ms; kernels == native == plain twin bit for bit")
+    log("  per kernel (device ms a call): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(per_kernel.items())))
+    del D, plane, twin, buf
+    torch.cuda.empty_cache()
+    return {
+        "name": "preprocess",
+        "route": "cuda",
+        "source": "iterative_cleaner_tpu_torch/csrc/preprocess.cu",
+        "replaces": "none: the native host pass native/ict_native.cc:107-160",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "parity": "ok (bit for bit with the native pass and the plain twin)",
+        "ms": ms,
+        "device_ms": device_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": times[bound_by],
+        "bound_by": bound_by,
+        "bytes_ms": times["bytes"],
+        "chain_floor_ms": times["chain"],
+        "native_ms": native_s * 1e3,
+        "kernels_ms": per_kernel,
     }
 
 
@@ -5465,11 +5559,17 @@ def main() -> int:
     card = phase_environment()
     import torch
 
+    from iterative_cleaner_tpu_torch.ops import preprocess as pp
     from iterative_cleaner_tpu_torch.ops import template as tp
+
+    preprocess_by_path = {}
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
+        before = pp.preprocess_plane.launches
         out = fn(*args)
+        if pp.preprocess_plane.launches != before:
+            preprocess_by_path[name.replace(" ", "_")] = pp.preprocess_plane.launches - before
         log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
         return out
 
@@ -5490,8 +5590,14 @@ def main() -> int:
         entries["ordered_template"] = timed("template parity", phase_template_parity)
         entries["ordered_template_f64"] = timed("template parity (float64)",
                                                 phase_template_f64)
+        entries["preprocess"] = timed("preprocess", phase_preprocess, lofar_prep,
+                                      entries["ordered_template_f64"]["t_add_ns"])
         entry = entries["fused_fit_moments"]
         lofar = timed("main path", phase_main_path, entries, lofar_prep)
+        # The CLI's clean preprocesses on the card.
+        check(preprocess_by_path.get("main_path") == 1,
+              f"the main path's CLI launched the device preprocess "
+              f"{preprocess_by_path.get('main_path', 0)} times")
         by_path = {"stepwise_cli": entry["launches"], "cli_warm_up": lofar["warm_launches"]}
         template_by_path = {"stepwise_cli": entries["ordered_template"]["launches"],
                             "cli_warm_up": lofar["warm_template_launches"]}
@@ -5547,6 +5653,8 @@ def main() -> int:
     entries["ordered_template"]["launches_by_path"] = template_by_path
     entries["ordered_template_f64"]["launches"] = f64_by_path["lofar_x64_stepwise"]
     entries["ordered_template_f64"]["launches_by_path"] = f64_by_path
+    entries["preprocess"]["launches"] = preprocess_by_path["main_path"]
+    entries["preprocess"]["launches_by_path"] = preprocess_by_path
     entry["busy"] = busy
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f}s")

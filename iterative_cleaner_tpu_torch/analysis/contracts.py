@@ -139,6 +139,15 @@ ROUTE_HOST_READS: dict[str, dict[str, tuple[HostReads, ...]]] = {
             HostReads("upload", 2, "run",
                       "the cube and the original weights (the constructor)"),
             _UPLOAD_STEP, _FETCH),
+        "TorchCleaner.step resident cube": (
+            HostReads("upload", 1, "run",
+                      "the original weights (the constructor; the cube is on "
+                      "the device already: the device preprocess's, which "
+                      "to_device passes through)"),
+            _UPLOAD_STEP, _FETCH,
+            HostReads("read", 1, "later iteration",
+                      "incremental_template's decision: the sparse candidate "
+                      "or the dense rebuild (iteration 1 builds densely)"),),
     },
     "fused": {
         "fused_clean": (
@@ -522,6 +531,18 @@ def _entry_points(D, w0, Db, w0b, device, block):
                     "sparse update": tb.sparse_template_candidate.taken - taken}
         return run
 
+    def resident(trace, kernel):
+        Dt = tb.to_device(D, device)
+        c = cfg.replace(kernel=kernel)
+        taken = tb.sparse_template_candidate.taken
+        with trace.resident(Dt):
+            backend = tb.TorchCleaner(Dt, w0, c, device=device)
+            state = LoopState.start(w0)
+            state.run(backend, c.max_iter, timed=False)
+        n = len(state.infos)
+        return {"run": 1, "iteration": n, "later iteration": n - 1,
+                "sparse update": tb.sparse_template_candidate.taken - taken}
+
     def fused(incremental):
         def run(trace, kernel):
             Dt, wt, vt = on_device()
@@ -582,6 +603,7 @@ def _entry_points(D, w0, Db, w0b, device, block):
             lambda c: tb.TorchCleaner(D, w0, c, device=device), True)),
         ("stepwise", "TorchCleaner.step dense", loop(
             lambda c: tb.TorchCleaner(D, w0, c, device=device), False)),
+        ("stepwise", "TorchCleaner.step resident cube", resident),
         ("fused", "fused_clean", fused(True)),
         ("fused", "fused_clean dense", fused(False)),
         ("chunked", "ChunkedTorchCleaner.step", loop(

@@ -167,15 +167,22 @@ def incremental_template(D, T_prev, w_prev, new_w):
     return build_template(D, new_w)
 
 
-#: The numpy type of each compute type.
-_NUMPY_TYPES = {torch.float32: np.float32, torch.float64: np.float64}  # ict: f64-ok(explicit --x64 opt-in)
+#: The numpy type of each compute type, and of the preprocess's shifts.
+_NUMPY_TYPES = {torch.float32: np.float32, torch.float64: np.float64,  # ict: f64-ok(explicit --x64 opt-in)
+                torch.int32: np.int32}
 
 
 def to_device(a, device, dtype=torch.float32) -> torch.Tensor:
-    """A host array as a ``dtype`` tensor (float32 or float64) on
-    ``device``.  On the CPU the tensor shares the array's memory where it
-    has that type already (the backend never writes to it); a read-only
-    array is copied first, as torch cannot wrap one."""
+    """A host array as a ``dtype`` tensor (float32 or float64; int32 for
+    the preprocess's shifts) on ``device``.  On the CPU the tensor shares
+    the array's memory where it has that type already (the backend never
+    writes to it); a read-only array is copied first, as torch cannot wrap
+    one.  A tensor passes through: as it is where it has ``device`` and
+    ``dtype`` already (the cube the device preprocess made)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == dtype and a.device == torch.device(device):
+            return a
+        return a.to(device=device, dtype=dtype)
     a = np.ascontiguousarray(a, _NUMPY_TYPES[dtype])
     if not a.flags.writeable:
         a = a.copy()
@@ -183,12 +190,13 @@ def to_device(a, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def upload(device, dtype, *arrays) -> list[torch.Tensor]:
-    """:func:`to_device` of each host array, in the ``clean_upload`` phase,
-    counting the bytes copied (``clean_upload_bytes``, after the
-    conversion to ``dtype``)."""
+    """:func:`to_device` of each array, in the ``clean_upload`` phase,
+    counting the bytes copied from host arrays (``clean_upload_bytes``,
+    after the conversion to ``dtype``); a tensor is no upload."""
     with tracing.phase("clean_upload"):
         out = [to_device(a, device, dtype) for a in arrays]
-        tracing.count("clean_upload_bytes", float(sum(t.nbytes for t in out)))
+        tracing.count("clean_upload_bytes", float(sum(
+            t.nbytes for a, t in zip(arrays, out) if not isinstance(a, torch.Tensor))))
     return out
 
 

@@ -187,8 +187,12 @@ def _iteration_info(
     )
 
 
-def _parity_warnings(D: np.ndarray, w0: np.ndarray) -> None:
-    """The two documented limits of mask parity with the numpy oracle."""
+def _parity_warnings(D, w0: np.ndarray, peak=None) -> None:
+    """The two documented limits of mask parity with the numpy oracle.
+    ``D`` is a host array, scanned here, or a tensor already on the device
+    (the device preprocess's cube), whose magnitude comes from ``peak``
+    (its :class:`..ops.preprocess.DevicePeak`; one fetch, which waits for
+    the preprocess) or, without one, from ``ops.preprocess.cube_peak``."""
     if D.shape[-1] < 3:
         warnings.warn(
             "mask parity vs the numpy oracle is not guaranteed below 3 "
@@ -197,18 +201,27 @@ def _parity_warnings(D: np.ndarray, w0: np.ndarray) -> None:
             "the device pipeline's MAD/tie classifications can flip at any "
             "uniform precision — f32 default and --x64 alike",
             stacklevel=3)
-    if D.size == 0 or D.nbytes > PARITY_SCAN_MAX_BYTES:
+    host = isinstance(D, np.ndarray)
+    if (D.size if host else D.numel()) == 0 or D.nbytes > PARITY_SCAN_MAX_BYTES:
         return
     # Beyond ~sqrt(f32max) the oracle's mixed pipeline bifurcates (its f32
     # fit overflows <t,t> while its f64-promoted ma.std stays finite).  Only
     # finite magnitudes warn: ±inf/NaN poison both pipelines alike.  The
-    # scan is two host passes over the cube, hence the size cap.
+    # host scan is two passes over the cube, hence the size cap.
     with tracing.phase("clean_parity_scan"):
-        peak = max(-float(np.nanmin(D)), float(np.nanmax(D))) * max(
+        if host:
+            lo, hi = float(np.nanmin(D)), float(np.nanmax(D))
+        else:
+            if peak is None:
+                from iterative_cleaner_tpu_torch.ops.preprocess import cube_peak
+
+                peak = cube_peak(D)
+            lo, hi = peak.read()
+        magnitude = max(-lo, hi) * max(
             1.0, abs(float(np.nanmax(w0))), abs(float(np.nanmin(w0))))
-    if np.isfinite(peak) and peak > 1e17:
+    if np.isfinite(magnitude) and magnitude > 1e17:
         warnings.warn(
-            f"data magnitude ~{peak:.1e} approaches the f32 dynamic "
+            f"data magnitude ~{magnitude:.1e} approaches the f32 dynamic "
             "range (squared residuals overflow beyond ~1.8e19, and the "
             "oracle's mixed f32/f64 pipeline bifurcates there); mask "
             "parity is not guaranteed at any device precision — inspect the "
@@ -223,11 +236,15 @@ def clean_cube(
     progress: ProgressFn | None = None,
     want_residual: bool = False,
     device="cuda",
+    peak=None,
 ) -> CleanResult:
     """Run the iterative cleaner on a preprocessed cube.
 
     D: (nsub, nchan, nbin) float32 — pscrunched, baseline-removed,
-    dedispersed.  w0: (nsub, nchan) float32 original weights.  With
+    dedispersed: a host array, or for the torch backend's in-memory routes
+    a tensor already on ``device`` (the device preprocess's cube, with its
+    ``peak``: ``ops/preprocess.preprocess`` with a device), which those
+    routes use as it is.  w0: (nsub, nchan) float32 original weights.  With
     ``cfg.x64`` the torch routes compute in float64.  ``device``
     is where the torch backend runs (default the card; raises when there is
     none); the numpy oracle ignores it.
@@ -249,7 +266,7 @@ def clean_cube(
     """
     chunk_block, chunk_why = None, ""
     if cfg.backend == "torch":
-        _parity_warnings(D, w0)
+        _parity_warnings(D, w0, peak)
         if cfg.chunk_block:
             # The operator's override: stream whatever the estimate says.
             chunk_block, chunk_why = int(cfg.chunk_block), "--chunk_block override"

@@ -2,9 +2,12 @@
 
 Port of ``iterative_cleaner_tpu/models/surgical.py:24-134``: preprocessing,
 the iterative loop, the bad-parts sweep, the output policy and the residual
-archive.  While the host preprocesses, a warm-up thread
-(``backends/torch_backend.start_precompile``) loads the kernel library and
-runs one dummy step of the route on a zero cube of the real shape.
+archive.  A warm-up thread (``backends/torch_backend.start_precompile``)
+loads the kernel library and runs one dummy step of the route on a zero
+cube of the real shape.  Where nothing after the preprocess reads a host
+cube (:func:`preprocess_device_for`), the raw plane goes to the card and is
+preprocessed there, once the warm-up has ended and freed its zero cube;
+otherwise the host preprocesses while the warm-up runs.
 ``--audit`` replays the same preprocessed inputs through the port's copy of
 the numpy oracle and compares the final masks and the scores
 (``obs/audit.run_audit``); a divergence writes a repro bundle under
@@ -24,9 +27,14 @@ from iterative_cleaner_tpu_torch.core.cleaner import (
     clean_cube,
     find_bad_parts,
 )
-from iterative_cleaner_tpu_torch.io.base import STATE_INTENSITY, Archive
-from iterative_cleaner_tpu_torch.obs import tracing
-from iterative_cleaner_tpu_torch.ops.preprocess import preprocess, pscrunch, redisperse_cube
+from iterative_cleaner_tpu_torch.io.base import STATE_COHERENCE, STATE_INTENSITY, Archive
+from iterative_cleaner_tpu_torch.obs import forensics, tracing
+from iterative_cleaner_tpu_torch.ops.preprocess import (
+    DEVICE_MAX_NBIN,
+    preprocess,
+    pscrunch,
+    redisperse_cube,
+)
 
 @dataclass
 class SurgicalOutput:
@@ -63,6 +71,35 @@ def finalize_weights(weights: np.ndarray, cfg: CleanConfig):
     return weights, 0, 0
 
 
+def preprocess_device_for(archive: Archive, cfg: CleanConfig, device):
+    """The device the surgical clean preprocesses ``archive`` on, or None
+    for the host route.  The device route needs nothing downstream to read
+    a host cube and the kernels to take the input: the torch backend on a
+    CUDA device that exists; a pscrunch that selects a plane (Coherence's
+    pol 0 + pol 1 stays on the host); no ``x64``, no ``chunk_block``; the
+    in-memory route by ``parallel/autoshard``'s estimate (the one
+    ``start_precompile`` makes); no ``audit`` and no zap attribution
+    (``ICT_FORENSICS=1``), which replay the host cube; rows of at most
+    ``DEVICE_MAX_NBIN`` bins."""
+    import torch
+
+    if (cfg.backend != "torch" or cfg.x64 or cfg.chunk_block or cfg.audit
+            or forensics.attribution_enabled()
+            or (archive.npol > 1 and archive.state == STATE_COHERENCE)
+            or archive.nbin > DEVICE_MAX_NBIN):
+        return None
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    if cfg.auto_shard:
+        from iterative_cleaner_tpu_torch.parallel.autoshard import chunk_block_subints
+
+        shape = (archive.nsub, archive.nchan, archive.nbin)
+        if chunk_block_subints(shape, cfg, dev, cfg.unload_res):
+            return None
+    return dev
+
+
 class SurgicalCleaner:
     """Configured cleaner; ``clean(archive)`` runs the full pipeline on
     ``device`` (default the card; the numpy oracle ignores it)."""
@@ -74,19 +111,26 @@ class SurgicalCleaner:
     def clean(self, archive: Archive, progress: ProgressFn | None = None) -> SurgicalOutput:
         cfg = self.cfg
         # The preprocessed cube's shape is known from the header alone, so
-        # the card's set-up overlaps the host preprocessing.
+        # the card's set-up starts before the preprocess.
         from iterative_cleaner_tpu_torch.backends.torch_backend import start_precompile
 
         shape = (archive.data.shape[0], archive.data.shape[2], archive.data.shape[3])
+        on = preprocess_device_for(archive, cfg, self.device)
         warm = start_precompile(shape, cfg, want_residual=cfg.unload_res,
                                 device=self.device)
-        D, w0 = preprocess(archive)
+        if on is None:
+            D, w0 = preprocess(archive)
+            peak = None
         if warm is not None:
-            # A warm-up still running must not race the real call.
+            # A warm-up still running must not race the real call, and on
+            # the device route its zero cube must be freed before the raw
+            # plane is allocated.
             with tracing.phase("clean_warmup_wait"):
                 warm.join()
+        if on is not None:
+            D, w0, peak = preprocess(archive, device=on)
         result = clean_cube(D, w0, cfg, progress=progress,
-                            want_residual=cfg.unload_res, device=self.device)
+                            want_residual=cfg.unload_res, device=self.device, peak=peak)
         with tracing.phase("clean_finalize"):
             final_w, n_bs, n_bc = finalize_weights(result.weights, cfg)
             cleaned = apply_output_policy(archive, final_w, cfg)

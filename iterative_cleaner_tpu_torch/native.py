@@ -212,20 +212,14 @@ def preprocess_native(archive) -> tuple[np.ndarray, np.ndarray] | None:
     """Native pscrunch + dedisperse + baseline; None if the library is
     missing.  Bit-matches the numpy path of ``ops.preprocess.preprocess``
     (both accumulate baselines in f64)."""
-    from iterative_cleaner_tpu_torch.ops.preprocess import BASELINE_FRAC, dispersion_shifts
+    from iterative_cleaner_tpu_torch.ops.preprocess import archive_shifts, baseline_width
 
     lib = get_lib()
     if lib is None:
         return None
     nsub, npol, nchan, nbin = archive.data.shape
-    shifts = (
-        dispersion_shifts(
-            archive.freqs, archive.dm, archive.period, nbin, archive.centre_frequency
-        )
-        if not archive.dedispersed
-        else np.zeros(nchan, np.int64)
-    ).astype(np.int32)
-    width = max(1, int(round(BASELINE_FRAC * nbin)))
+    shifts = archive_shifts(archive)
+    width = baseline_width(nbin)
     data = np.ascontiguousarray(archive.data, np.float32)
     # Always a fresh copy: w0 is the frozen original weights and must not
     # alias archive.weights (the numpy path's astype also copies).

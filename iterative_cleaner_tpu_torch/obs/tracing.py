@@ -23,16 +23,18 @@ runs) shows each phase on the clock it aligns the card's kernels and
 copies to.  With no profiler listening the span costs one enter and exit.
 The phases of a clean, each on the thread that runs it:
 
-- ``clean_preprocess`` — ``ops/preprocess.preprocess``, either route;
+- ``clean_preprocess`` — ``ops/preprocess.preprocess``, any route (on the
+  device route the kernels' launches, after the plane's ``clean_upload``);
 - ``clean_warmup`` — the warm-up of ``backends/torch_backend.start_precompile``,
   on its ``ict-precompile`` thread; ``clean_warmup_wait`` — the caller's
   join of that thread (``models/surgical.SurgicalCleaner.clean``);
 - ``clean_parity_scan`` — ``core/cleaner._parity_warnings``'s magnitude scan
-  of the host cube, when it scans;
+  of the host cube, or the fetch of the device preprocess's peak, when it
+  scans;
 - ``clean_upload`` — the copies of the cube and its weights to the device
   (``backends/torch_backend.upload``: the stepwise and fused routes, the
-  sweep, the chunked route's weights); the counter ``clean_upload_bytes``
-  adds the bytes copied;
+  sweep, the chunked route's weights, the device preprocess's raw plane);
+  the counter ``clean_upload_bytes`` adds the bytes copied;
 - ``clean_loop`` — the convergence loop up to its last host fetch;
 - ``clean_finalize`` — what follows the loop: the surgical cleaner's
   bad-parts sweep, output policy, residual and audit; the sweep's points.
