@@ -114,6 +114,11 @@ _FETCH = HostReads("read", 2, "iteration",
 _UPLOAD_STEP = HostReads("upload", 1, "iteration",
                          "the weights the step starts from (LoopState hands "
                          "host arrays)")
+_UPLOAD_CUBE = HostReads("upload", 2, "run",
+                         "the cube and the original weights (the constructor; "
+                         "a cube of ingest/staging.STAGED_MIN_BYTES or more is "
+                         "one staged upload: its pieces' non-blocking copies, "
+                         "then the last piece's blocking one, the one sync)")
 
 #: route -> entry point -> its transfers.  Changing a route's host traffic
 #: means updating its line here in the same change — the contract doing
@@ -129,16 +134,11 @@ ROUTE_HOST_READS: dict[str, dict[str, tuple[HostReads, ...]]] = {
                       "bool(ok): whether the sparse candidate may stand for "
                       "the dense rebuild (its docstring's one host read)"),),
         "TorchCleaner.step": (
-            HostReads("upload", 2, "run",
-                      "the cube and the original weights (the constructor)"),
-            _UPLOAD_STEP, _FETCH,
+            _UPLOAD_CUBE, _UPLOAD_STEP, _FETCH,
             HostReads("read", 1, "later iteration",
                       "incremental_template's decision: the sparse candidate "
                       "or the dense rebuild (iteration 1 builds densely)"),),
-        "TorchCleaner.step dense": (
-            HostReads("upload", 2, "run",
-                      "the cube and the original weights (the constructor)"),
-            _UPLOAD_STEP, _FETCH),
+        "TorchCleaner.step dense": (_UPLOAD_CUBE, _UPLOAD_STEP, _FETCH),
         "TorchCleaner.step resident cube": (
             HostReads("upload", 1, "run",
                       "the original weights (the constructor; the cube is on "

@@ -21,6 +21,7 @@ CUDA device and no explicit ``device="cpu"``, :func:`resolve_device` raises.
 
 from __future__ import annotations
 
+import math
 import os
 import threading
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from iterative_cleaner_tpu_torch.config import CleanConfig
+from iterative_cleaner_tpu_torch.ingest import staging
 from iterative_cleaner_tpu_torch.ops.fused_kernels import (
     fused_fit_moments,
     kernel_route_status,
@@ -172,17 +174,35 @@ _NUMPY_TYPES = {torch.float32: np.float32, torch.float64: np.float64,  # ict: f6
                 torch.int32: np.int32}
 
 
+def takes_staged_route(a, device: torch.device, dtype) -> bool:
+    """Whether :func:`to_device` copies ``a`` to ``device`` through the
+    pinned pieces: a numpy array of ``dtype`` already (no cast) and of at
+    least ``ingest/staging.STAGED_MIN_BYTES``, to a CUDA device."""
+    return (device.type == "cuda" and isinstance(a, np.ndarray)
+            and a.dtype == _NUMPY_TYPES[dtype] and a.nbytes >= staging.STAGED_MIN_BYTES)
+
+
 def to_device(a, device, dtype=torch.float32) -> torch.Tensor:
     """A host array as a ``dtype`` tensor (float32 or float64; int32 for
     the preprocess's shifts) on ``device``.  On the CPU the tensor shares
     the array's memory where it has that type already (the backend never
     writes to it); a read-only array is copied first, as torch cannot wrap
     one.  A tensor passes through: as it is where it has ``device`` and
-    ``dtype`` already (the cube the device preprocess made)."""
+    ``dtype`` already (the cube the device preprocess made).  Where
+    :func:`takes_staged_route`, the array, strided or not, is copied through
+    the process's pinned pieces by several host threads
+    (``ingest/staging.StagingPool.fill``, counter ``clean_upload_staged``);
+    any other array to a CUDA device takes one pageable copy."""
     if isinstance(a, torch.Tensor):
         if a.dtype == dtype and a.device == torch.device(device):
             return a
         return a.to(device=device, dtype=dtype)
+    dev = torch.device(device)
+    if takes_staged_route(a, dev, dtype):
+        dst = torch.empty(a.shape, dtype=dtype, device=dev)
+        staging.pool_for(dev).fill(dst, a)
+        tracing.count("clean_upload_staged")
+        return dst
     a = np.ascontiguousarray(a, _NUMPY_TYPES[dtype])
     if not a.flags.writeable:
         a = a.copy()
@@ -385,7 +405,9 @@ def start_precompile(shape, cfg: CleanConfig, want_residual: bool = False,
     backend, not a CUDA device that exists, ``ICT_NO_PRECOMPILE=1``, or an
     explicit ``chunk_block``.  Inside the thread it also skips the chunked
     route and a cube whose doubled working set would not fit (the dummy
-    cube would crowd out the real one).  A failure is kept on the thread's
+    cube would crowd out the real one); before that it makes the process's
+    pinned pieces for the cube's upload (``ingest/staging.pool_for``) where
+    the cube takes the staged route.  A failure is kept on the thread's
     ``error`` and not raised: the real call repeats the work and raises
     there.  The thread's ``launches`` is the kernel launches its dummy run
     made (the counter's movement while it ran; the caller makes none until
@@ -413,6 +435,8 @@ def start_precompile(shape, cfg: CleanConfig, want_residual: bool = False,
             with tracing.phase("clean_warmup"):
                 if cfg.auto_shard and chunk_block_subints(shape, cfg, dev, want_residual):
                     return  # the chunked route: nothing cube-sized to warm
+                if math.prod(shape) * compute_dtype(cfg).itemsize >= staging.STAGED_MIN_BYTES:
+                    staging.pool_for(dev)   # the pinned pieces the cube's upload takes
                 hbm = device_memory_bytes(dev)
                 use_kernel = resolve_use_kernel(cfg, int(shape[-1]), dev, want_residual)
                 if hbm is not None and (2 * clean_working_set_bytes(shape, cfg, use_kernel)

@@ -34,7 +34,10 @@ The phases of a clean, each on the thread that runs it:
 - ``clean_upload`` — the copies of the cube and its weights to the device
   (``backends/torch_backend.upload``: the stepwise and fused routes, the
   sweep, the chunked route's weights, the device preprocess's raw plane);
-  the counter ``clean_upload_bytes`` adds the bytes copied;
+  the counter ``clean_upload_bytes`` adds the bytes copied,
+  ``clean_upload_staged`` the copies that went through pinned pieces
+  (``ingest/staging.py``), whose bytes the gauge
+  ``clean_upload_pinned_bytes`` holds;
 - ``clean_loop`` — the convergence loop up to its last host fetch;
 - ``clean_finalize`` — what follows the loop: the surgical cleaner's
   bad-parts sweep, output policy, residual and audit; the sweep's points.
