@@ -1225,13 +1225,18 @@ def phase_template_f64():
 
 def phase_preprocess(lofar_prep, t_add_ns: float) -> dict:
     """The device preprocess at LOFAR: the seed-42 raw archive through
-    ``preprocess(ar, device="cuda")`` against the native host pass bit for
-    bit (its peak against the native cube's ``nanmin`` / ``nanmax``) and
-    against the plain twin on the same plane; the kernels on the uploaded
+    ``preprocess(ar, device="cuda")`` against the shared native pass
+    ``ict_preprocess`` of ``native/ict_native.cc`` bit for bit (its peak
+    against that cube's ``nanmin`` / ``nanmax``), as is the port's own host
+    pass (``native.host_pass``, ``csrc/host_preprocess.cc``: the host route's,
+    timed as ``native_ms``, the shared pass as ``shared_ms``), and against the
+    plain twin on the same plane; the kernels on the uploaded
     plane (the upload left out) a call and back to back, each kernel's
     device time from a profiler, beside the bytes the cube needs (read and
     written once, 2 GiB) and the float64 total's chain floor (``nsub x
     nchan`` dependent adds at ``t_add_ns``, phase 3's float64 chain probe)."""
+    import ctypes
+
     import numpy as np
     import torch
 
@@ -1240,19 +1245,31 @@ def phase_preprocess(lofar_prep, t_add_ns: float) -> dict:
 
     ar = lofar_prep.result()[0]
     nsub, nchan, nbin = LOFAR
+    shifts = pp.archive_shifts(ar)
+    width = pp.baseline_width(nbin)
+    data = np.ascontiguousarray(ar.data, np.float32)
+    w0 = np.array(ar.weights, np.float32)
+    want = np.empty(LOFAR, np.float32)
     t0 = time.perf_counter()
-    want, _ = native.preprocess_native(ar)
+    rc = native.get_lib().ict_preprocess(
+        native._fptr(data), native._fptr(w0),
+        shifts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), nsub, data.shape[1], nchan,
+        nbin, native.STATE_TO_ENUM[ar.state], width, native._fptr(want))
+    shared_s = time.perf_counter() - t0
+    check(rc == 0, f"ict_preprocess failed with rc={rc}")
+    t0 = time.perf_counter()
+    host, _, threads = native.host_pass(ar)
     native_s = time.perf_counter() - t0
+    check(host.tobytes() == want.tobytes(), f"the host pass at {LOFAR} != ict_preprocess")
+    del host
     D, _w0, peak = pp.preprocess(ar, device="cuda")
     got = D.cpu().numpy()
-    check(got.tobytes() == want.tobytes(), f"device preprocess at {LOFAR} != the native pass")
+    check(got.tobytes() == want.tobytes(), f"device preprocess at {LOFAR} != ict_preprocess")
     check(peak.read() == (float(want.min()), float(want.max())),
           f"device preprocess peak {peak.read()} != the native cube's")
 
-    shifts = pp.archive_shifts(ar)
     w = torch.from_numpy(np.array(ar.weights, np.float32)).cuda()
     sh = torch.from_numpy(shifts).cuda()
-    width = pp.baseline_width(nbin)
     plane = torch.from_numpy(np.ascontiguousarray(ar.data[:, 0])).cuda()
     twin = plane.clone()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1286,8 +1303,10 @@ def phase_preprocess(lofar_prep, t_add_ns: float) -> dict:
     bound_by = max(times, key=times.get)
     log(f"preprocess at {LOFAR}: ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={times[bound_by]:.4f} ({bound_by}; bytes {times['bytes']:.4f} for "
-        f"{bytes_moved / 2**30:.0f} GiB, chain floor {times['chain']:.4f}); the native host "
-        f"pass {native_s * 1e3:.1f} ms; kernels == native == plain twin bit for bit")
+        f"{bytes_moved / 2**30:.0f} GiB, chain floor {times['chain']:.4f}); the host pass "
+        f"{native_s * 1e3:.1f} ms on {threads} threads (its first call: a fresh output), "
+        f"ict_preprocess {shared_s * 1e3:.1f} ms; kernels == host pass == ict_preprocess == "
+        f"plain twin bit for bit")
     log("  per kernel (device ms a call): " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(per_kernel.items())))
     del D, plane, twin, buf
@@ -1299,7 +1318,7 @@ def phase_preprocess(lofar_prep, t_add_ns: float) -> dict:
         "replaces": "none: the native host pass native/ict_native.cc:107-160",
         "launches": None,
         "max_abs_err": 0.0,
-        "parity": "ok (bit for bit with the native pass and the plain twin)",
+        "parity": "ok (bit for bit with ict_preprocess, the host pass and the plain twin)",
         "ms": ms,
         "device_ms": device_ms,
         "plain_ms": plain_ms,
@@ -1308,6 +1327,8 @@ def phase_preprocess(lofar_prep, t_add_ns: float) -> dict:
         "bytes_ms": times["bytes"],
         "chain_floor_ms": times["chain"],
         "native_ms": native_s * 1e3,
+        "native_threads": threads,
+        "shared_ms": shared_s * 1e3,
         "kernels_ms": per_kernel,
     }
 
@@ -2781,8 +2802,9 @@ def _sweep_library(lofar) -> dict:
 
 
 def _sweep_cli() -> None:
-    """cli.main --sweep 4:4 5:5 6:6 on a 32 x 1024 x 1024 archive: its
-    _sweep.npz equals the library's points."""
+    """cli.main --sweep 4:4 5:5 6:6 on a 32 x 1024 x 1024 archive: its host
+    preprocess ran on the host's cores (gauge ``clean_preprocess_threads``)
+    and its _sweep.npz equals the library's points."""
     import numpy as np
 
     from iterative_cleaner_tpu_torch import cli
@@ -2790,6 +2812,7 @@ def _sweep_cli() -> None:
     from iterative_cleaner_tpu_torch.io.npz import NpzIO
     from iterative_cleaner_tpu_torch.io.synthetic import make_archive
     from iterative_cleaner_tpu_torch.models import sweep
+    from iterative_cleaner_tpu_torch.obs import tracing
     from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
 
     shape = (32, *LOFAR[1:])
@@ -2808,6 +2831,10 @@ def _sweep_cli() -> None:
         finally:
             os.chdir(cwd)
         check(rc == 0, f"cli.main --sweep returned {rc}")
+        threads = tracing.gauges_snapshot()[0].get("clean_preprocess_threads")
+        cores = int(os.environ.get("OMP_NUM_THREADS") or len(os.sched_getaffinity(0)))
+        check(threads == cores, f"the sweep's host preprocess ran on {threads} threads, "
+              f"not the host's {cores}")
         lib = sweep.sweep_thresholds(*preprocess(ar), CleanConfig(backend="torch"), pairs)
         check(sweep.format_table(lib) in out.getvalue(), "the CLI's table != the library's")
         with np.load(path + "_sweep.npz") as z:
@@ -2819,7 +2846,8 @@ def _sweep_cli() -> None:
               and not os.path.exists(os.path.join(tmp, "clean.log")),
               "--sweep wrote a cleaned archive or clean.log")
     log(f"CLI --sweep 4:4 5:5 6:6 on {shape} (nsub cut for the NPZ writer): rc 0, wall "
-        f"{wall:.2f}s, _sweep.npz = the library's points (loops "
+        f"{wall:.2f}s, host preprocess on {threads} threads, _sweep.npz = the library's "
+        f"points (loops "
         f"{[p.loops for p in lib]}, zapped {[int((p.weights == 0).sum()) for p in lib]})")
 
 

@@ -1,20 +1,30 @@
-"""ctypes bindings for the native host runtime (``native/ict_native.cc``).
+"""ctypes bindings for the native host runtime.
 
 A port of ``iterative_cleaner_tpu/native.py``: the ``.ictb`` archive writer
-and reader (``ictb_save``, ``ictb_load_header``, ``ictb_load``) and the
-OpenMP preprocess (``ict_preprocess``: pscrunch, integer dedispersion,
-baseline removal), bit-identical to the numpy path of
-:mod:`.ops.preprocess`.
+and reader (``ictb_save``, ``ictb_load_header``, ``ictb_load``) of the repo's
+shared source ``native/ict_native.cc``, and the port's own host preprocess
+pass (``ict_host_preprocess``, ``csrc/host_preprocess.cc``: pscrunch, integer
+dedispersion, baseline removal on every core), bit for bit with that source's
+``ict_preprocess`` and with the numpy path of :mod:`.ops.preprocess`.
 
-The port compiles the repo's shared source ``native/ict_native.cc`` itself,
-with ``g++``, straight into its own git-ignored ``_build/`` directory (never
-through ``make -C native``, whose Makefile writes into the JAX package).
-The library's name carries a hash of the source, the flags and the host's
-CPU (``-march=native``), and it is written under a temporary name and
-renamed, so concurrent processes (the test suite's workers) never load a
-half-written file (``ops/cuda_build``'s ``keyed_library`` and
-``compile_shared``, which the CUDA kernels build through too).  The build runs at
-first use, never at import.
+The port compiles both sources itself, with ``g++``, into one library in its
+own git-ignored ``_build/`` directory (never through ``make -C native``, whose
+Makefile writes into the JAX package; ``ict_preprocess`` stays in the library
+as the tests' reference).  The library's name carries a hash of the sources,
+the flags and the host's CPU (``-march=native``), and it is written under a
+temporary name and renamed, so concurrent processes (the test suite's
+workers) never load a half-written file (``ops/cuda_build``'s
+``keyed_library`` and ``compile_shared``, which the CUDA kernels build
+through too).  The build runs at first use, never at import.
+
+The pass reads the raw archive twice and writes its output once
+(``csrc/host_preprocess.cc``).  Its output is an anonymous private mapping;
+when every array over it is gone, the mapping is kept, already faulted in,
+for the next output of its size (one at most, of up to
+:data:`SPARE_MAX_BYTES`), so an archive after the first pays no page faults
+for its 1 GiB (:func:`output_array`).  :func:`host_pass` also returns the
+threads the pass ran on, which ``ops/preprocess`` keeps in the gauge
+``clean_preprocess_threads``.
 
 As in the JAX package, everything degrades to numpy when the toolchain or
 the source is missing: :func:`available` is then False and
@@ -25,9 +35,12 @@ caller can refuse a silent fall back to numpy.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import mmap
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +49,7 @@ from iterative_cleaner_tpu_torch.ops import cuda_build
 
 PKG_DIR = Path(__file__).resolve().parent
 SOURCE = PKG_DIR.parent / "native" / "ict_native.cc"
+HOST_SOURCE = PKG_DIR / "csrc" / "host_preprocess.cc"
 BUILD_DIR = PKG_DIR / "_build"
 
 #: The JAX package's ``native/Makefile`` flags.
@@ -81,10 +95,11 @@ def _host_cpu() -> bytes:
 
 
 def library_path() -> Path:
-    """The build of the current source under :data:`CXXFLAGS` for this
+    """The build of the current sources under :data:`CXXFLAGS` for this
     host's CPU."""
-    return cuda_build.keyed_library("ict_native", SOURCE.read_bytes() + _host_cpu(),
-                                    CXXFLAGS, BUILD_DIR)
+    return cuda_build.keyed_library(
+        "ict_native", SOURCE.read_bytes() + HOST_SOURCE.read_bytes() + _host_cpu(),
+        CXXFLAGS, BUILD_DIR)
 
 
 def _build(log: list[str] | None = None) -> Path | None:
@@ -98,7 +113,7 @@ def _build(log: list[str] | None = None) -> Path | None:
     out = library_path()
     if out.exists():
         return out
-    cmd = ["g++", *CXXFLAGS, str(SOURCE)]
+    cmd = ["g++", *CXXFLAGS, str(SOURCE), str(HOST_SOURCE)]
     try:
         proc = cuda_build.compile_shared(cmd, out, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as exc:
@@ -134,6 +149,8 @@ def get_lib():
         lib.ict_preprocess.argtypes = [
             f32p, f32p, i32p, u32, u32, u32, u32, u32, u32, f32p]
         lib.ict_preprocess.restype = ctypes.c_int
+        lib.ict_host_preprocess.argtypes = lib.ict_preprocess.argtypes
+        lib.ict_host_preprocess.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -208,10 +225,44 @@ def load_ictb(path: str):
     )
 
 
-def preprocess_native(archive) -> tuple[np.ndarray, np.ndarray] | None:
-    """Native pscrunch + dedisperse + baseline; None if the library is
-    missing.  Bit-matches the numpy path of ``ops.preprocess.preprocess``
-    (both accumulate baselines in f64)."""
+#: The last released output mapping, faulted in, for the next of its size.
+_spare = collections.deque(maxlen=1)  # ict: guarded-by(none: atomic pop and append)
+
+#: The largest output kept as the spare: four LOFAR archives' 1 GiB.  A
+#: larger one (the north star's 17 GB cube on the chunked route) goes back to
+#: the system when released, as any array does.
+SPARE_MAX_BYTES = 4 << 30
+
+
+def output_array(shape: tuple[int, ...]) -> np.ndarray:
+    """A float32 array of ``shape`` to write whole, over an anonymous private
+    mapping: the spare one when it has this size, else a fresh one (and any
+    spare of another size is let go).  When the last array over the mapping
+    is gone, the mapping becomes the spare: pages already faulted in, where a
+    fresh 1 GiB costs a fault a page on first touch.  Above
+    :data:`SPARE_MAX_BYTES`, a plain array that nothing keeps."""
+    nbytes = int(np.prod(shape)) * 4
+    if nbytes > SPARE_MAX_BYTES:
+        _spare.clear()
+    if nbytes == 0 or nbytes > SPARE_MAX_BYTES:
+        return np.empty(shape, np.float32)
+    try:
+        buf = _spare.pop()
+    except IndexError:
+        buf = None
+    if buf is None or len(buf) != nbytes:
+        buf = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS)
+    flat = np.frombuffer(buf, np.float32)
+    # Every view of ``flat`` holds it as its base, so this runs after the last.
+    weakref.finalize(flat, _spare.append, buf)
+    return flat.reshape(shape)
+
+
+def host_pass(archive) -> tuple[np.ndarray, np.ndarray, int] | None:
+    """Native pscrunch + dedisperse + baseline (``ict_host_preprocess``):
+    (D, w0, the threads the pass ran on), or None if the library is missing.
+    Bit-matches ``ict_preprocess`` and the numpy path of
+    ``ops.preprocess.preprocess`` (both accumulate baselines in f64)."""
     from iterative_cleaner_tpu_torch.ops.preprocess import archive_shifts, baseline_width
 
     lib = get_lib()
@@ -224,11 +275,17 @@ def preprocess_native(archive) -> tuple[np.ndarray, np.ndarray] | None:
     # Always a fresh copy: w0 is the frozen original weights and must not
     # alias archive.weights (the numpy path's astype also copies).
     w0 = np.array(archive.weights, dtype=np.float32, copy=True)
-    out = np.empty((nsub, nchan, nbin), np.float32)
-    rc = lib.ict_preprocess(
+    out = output_array((nsub, nchan, nbin))
+    threads = lib.ict_host_preprocess(
         _fptr(data), _fptr(w0),
         shifts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         nsub, npol, nchan, nbin, STATE_TO_ENUM[archive.state], width, _fptr(out))
-    if rc != 0:
-        raise RuntimeError(f"ict_preprocess failed with rc={rc}")
-    return out, w0
+    if threads < 1:
+        raise RuntimeError(f"ict_host_preprocess failed with rc={threads}")
+    return out, w0, threads
+
+
+def preprocess_native(archive) -> tuple[np.ndarray, np.ndarray] | None:
+    """(D, w0) of :func:`host_pass`, or None if the library is missing."""
+    out = host_pass(archive)
+    return None if out is None else out[:2]

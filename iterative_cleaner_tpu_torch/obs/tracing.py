@@ -25,6 +25,8 @@ The phases of a clean, each on the thread that runs it:
 
 - ``clean_preprocess`` — ``ops/preprocess.preprocess``, any route (on the
   device route the kernels' launches, after the plane's ``clean_upload``);
+  on the native host route the gauge ``clean_preprocess_threads`` holds the
+  threads the last pass ran on (``native.host_pass``);
 - ``clean_warmup`` — the warm-up of ``backends/torch_backend.start_precompile``,
   on its ``ict-precompile`` thread; ``clean_warmup_wait`` — the caller's
   join of that thread (``models/surgical.SurgicalCleaner.clean``);

@@ -4,15 +4,18 @@ A copy of ``iterative_cleaner_tpu/ops/preprocess.py:43-148``:
 weight-independent work that runs once, producing the static cube
 ``D:(nsub, nchan, nbin) float32`` the iteration loop reads.  On the host, as
 in the JAX package, :func:`preprocess` prefers the native C++/OpenMP route
-(:mod:`..native`, bit-identical) when its library builds, and takes the
-numpy path otherwise.  Given a ``device``, it uploads the raw pscrunched
+when its library builds (:mod:`..native`: the port's own pass
+``csrc/host_preprocess.cc``, its passes over the data on every core, bit for
+bit with the shared ``native/ict_native.cc`` and with the numpy path), and
+takes the numpy path otherwise.  Given a ``device``, it uploads the raw pscrunched
 plane instead and preprocesses it there in place (:func:`preprocess_plane`:
 the hand-written kernels of ``csrc/preprocess.cu`` on the card, their plain
 twin :func:`preprocess_plane_plain` on the CPU), bit for bit with the native
 pass, and hands back the cube's NaN-ignoring peak for the input scan
 (``core/cleaner._parity_warnings``).  The route taken is counted in
 :mod:`..obs.tracing` (``preprocess_native`` / ``preprocess_numpy`` /
-``preprocess_device``).
+``preprocess_device``); on the native route the gauge
+``clean_preprocess_threads`` holds the threads the pass ran on.
 
 Semantics (documented divergences from PSRCHIVE, shared by both packages):
 
@@ -142,10 +145,11 @@ def preprocess(archive: Archive, prefer_native: bool = True, device=None):
         if prefer_native:
             from iterative_cleaner_tpu_torch import native
 
-            out = native.preprocess_native(archive)
+            out = native.host_pass(archive)
             if out is not None:
                 tracing.count("preprocess_native")
-                return out
+                tracing.set_gauge("clean_preprocess_threads", out[2])
+                return out[:2]
         tracing.count("preprocess_numpy")
         cube = pscrunch(archive.data, archive.state).astype(np.float32)
         if not archive.dedispersed:
