@@ -35,7 +35,7 @@ from iterative_cleaner_tpu_torch.ops.fused_kernels import (
     resolve_use_kernel,
 )
 from iterative_cleaner_tpu_torch.ops.stats import (
-    comprehensive_stats,
+    diagnostics,
     fft_diagnostic,
     scale_and_combine,
 )
@@ -87,6 +87,15 @@ def check_fp32_matmul() -> None:
             "'highest'), allow_tf32 = False) before cleaning")
 
 
+def repeats_first_archive(*batch: torch.Tensor) -> bool:
+    """Whether every tensor of a batch holds its first archive again and
+    again: more than one archive, each tensor with stride 0 on the archive
+    axis (a cube broadcast by ``expand``, as the threshold sweep's pairs
+    are)."""
+    return batch[0].dim() == 4 and batch[0].shape[0] > 1 and all(
+        t.stride(0) == 0 for t in batch)
+
+
 def step_from_template(D, w0, valid, template, chanthresh, subintthresh, *,
                        pulse_region, use_kernel=False):
     """Fit/subtract/stats/zap given a built template.  Returns
@@ -94,19 +103,33 @@ def step_from_template(D, w0, valid, template, chanthresh, subintthresh, *,
     materialises it.  Batched tensors — D (a, nsub, nchan, nbin), one
     template per archive (a, nbin), maps (a, nsub, nchan) — are the
     directory batch's step (``parallel/sharded.py``): one kernel launch
-    over all archives, every other op archive by archive."""
+    over all archives, every other op archive by archive.
+
+    Where ``D``, ``w0``, ``valid`` and ``template`` all repeat their first
+    archive (:func:`repeats_first_archive`), so do the fit, the residual
+    and the four maps: they are computed once, on archive 0, and broadcast
+    to the batch, and only the scalers and the zap run per archive, against
+    each archive's thresholds.  The results are the same bits as the batch
+    computed archive by archive."""
+    fit = (D, w0, valid, template)
+    shared = repeats_first_archive(*fit)
+    if shared:
+        fit = tuple(t[:1] for t in fit)
+    D1, w01, valid1, template1 = fit
     if use_kernel:
         # valid passed in: the kernel emits filled, scaler-ready maps.
         centred, d_mean, d_std, d_ptp = fused_fit_moments(
-            D, template, w0, valid, pulse_region=pulse_region)
-        test = scale_and_combine(
-            d_std, d_mean, d_ptp, fft_diagnostic(centred), valid,
-            chanthresh, subintthresh)
+            D1, template1, w01, valid1, pulse_region=pulse_region)
+        maps = (d_std, d_mean, d_ptp, fft_diagnostic(centred))
         resid = None
     else:
-        _amp, resid = fit_and_subtract(D, template, pulse_region)
-        weighted = resid * w0[..., None]
-        test = comprehensive_stats(weighted, valid, chanthresh, subintthresh)
+        _amp, resid = fit_and_subtract(D1, template1, pulse_region)
+        weighted = resid * w01[..., None]
+        maps = diagnostics(weighted, valid1)
+    if shared:
+        maps = tuple(m.expand(w0.shape) for m in maps)
+        resid = None if resid is None else resid.expand(D.shape)
+    test = scale_and_combine(*maps, valid, chanthresh, subintthresh)
     # Zap where test >= 1 on an original-weights clone; NaN >= 1 is False,
     # so NaN never flags.
     new_w = torch.where(test >= 1.0, torch.zeros((), dtype=w0.dtype, device=w0.device), w0)

@@ -40,7 +40,12 @@ The phases of a clean, each on the thread that runs it:
   ``clean_upload_staged`` the copies that went through pinned pieces
   (``ingest/staging.py``), whose bytes the gauge
   ``clean_upload_pinned_bytes`` holds;
-- ``clean_loop`` — the convergence loop up to its last host fetch;
+- ``clean_loop`` — the convergence loop up to its last host fetch; in the
+  one-device batch's loop (``parallel/sharded.batched_clean_step``: the
+  sweep, the directory batch, the service's dispatch) the counter
+  ``clean_batch_steps`` adds every iteration and ``clean_batch_shared_steps``
+  those that fitted one archive for a batch that repeats it (the sweep's
+  first);
 - ``clean_finalize`` — what follows the loop: the surgical cleaner's
   bad-parts sweep, output policy, residual and audit; the sweep's points.
 

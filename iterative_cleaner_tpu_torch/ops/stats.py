@@ -183,11 +183,3 @@ def scale_and_combine(d_std, d_mean, d_ptp, d_fft, valid,
     per_subint = _scale_axis(stack4, valid, axis=1, thresh=subintthresh)
     combined = torch.maximum(per_chan, per_subint)
     return median4_nonneg(combined)
-
-
-def comprehensive_stats(weighted: torch.Tensor, valid: torch.Tensor,
-                        chanthresh, subintthresh) -> torch.Tensor:
-    """weighted residual cube → per-profile outlier score."""
-    d_std, d_mean, d_ptp, d_fft = diagnostics(weighted, valid)
-    return scale_and_combine(
-        d_std, d_mean, d_ptp, d_fft, valid, chanthresh, subintthresh)

@@ -13,6 +13,9 @@ the batch out on a ('dp', 'sp', 'tp') mesh.  On a one-device mesh
   or runs the plain route, then the FFT diagnostic (each archive in its own
   pieces), the robust scalers (every median within its archive) and the zap
   rule — ``backends/torch_backend.step_from_template`` on batched tensors;
+  a batch that repeats one archive on a stride-0 axis (the threshold
+  sweep's pairs, before any pair's mask has moved) fits the cube and takes
+  its four maps once, and only the scalers and the zap run per archive;
 - the vmapped ``lax.while_loop`` runs until every archive has stopped or
   ``max_iter`` is reached.  An archive that stopped keeps its scores,
   weights, ``loops``, ``done`` and ``x`` frozen at its own stop and its
@@ -76,9 +79,11 @@ import torch
 from iterative_cleaner_tpu_torch.backends.torch_backend import (
     device_for,
     kernel_for,
+    repeats_first_archive,
     step_from_template,
 )
 from iterative_cleaner_tpu_torch.config import CleanConfig
+from iterative_cleaner_tpu_torch.obs import tracing
 from iterative_cleaner_tpu_torch.ops.stats import scale_and_combine
 from iterative_cleaner_tpu_torch.ops.template import build_templates
 from iterative_cleaner_tpu_torch.parallel import collectives
@@ -90,9 +95,21 @@ def batched_clean_step(Db, w0b, validb, w_prevb, chanthresh, subintthresh, *,
                        pulse_region, use_kernel=False):
     """One iteration for a batch of archives, ``(a, nsub, nchan, nbin)``
     cubes: a dense template per archive from ``w_prevb``, then the step.
-    Returns (test, new_w, resid); resid is None on the kernel route."""
+    Returns (test, new_w, resid); resid is None on the kernel route.
+
+    Where all four inputs repeat their first archive (the sweep's first
+    iteration: one cube, one mask, the pairs differing only in their
+    thresholds), the step is shared: archive 0's template stands for the
+    batch's, so :func:`step_from_template` fits the cube and takes its four
+    maps once.  Counters ``clean_batch_steps`` (every call) and
+    ``clean_batch_shared_steps`` (the shared ones)."""
+    templates = build_templates(Db, w_prevb)
+    tracing.count("clean_batch_steps")
+    if repeats_first_archive(Db, w0b, validb, w_prevb):
+        tracing.count("clean_batch_shared_steps")
+        templates = templates[:1].expand(templates.shape)
     return step_from_template(
-        Db, w0b, validb, build_templates(Db, w_prevb), chanthresh, subintthresh,
+        Db, w0b, validb, templates, chanthresh, subintthresh,
         pulse_region=pulse_region, use_kernel=use_kernel)
 
 
@@ -103,10 +120,12 @@ def batched_fused_clean(Db, w0b, validb, chanthresh, subintthresh, *,
     ``chanthresh`` / ``subintthresh`` are floats, or ``(a,)`` tensors of one
     pair per archive: the threshold sweep (``models/sweep.py``) runs a grid
     as a batch of one cube broadcast over a pair axis (``D.expand``, no
-    copy).  Runs until every archive has stopped (its new mask repeated one in its
-    history) or ``max_iter`` iterations.  Nothing of (a, nsub, nchan) size
-    goes to the host inside the loop; each iteration but the last reads the
-    host once, for ``active.any()``.  Returns device tensors
+    copy), so its first iteration is one shared step
+    (:func:`batched_clean_step`).  Runs until every archive has stopped (its
+    new mask repeated one in its history) or ``max_iter`` iterations.
+    Nothing of (a, nsub, nchan) size goes to the host inside the loop; each
+    iteration but the last reads the host once, for ``active.any()``.
+    Returns device tensors
     ``(test, w_final, loops, done, x, None, history)`` in the JAX package's
     order: scores and final weights ``(a, nsub, nchan)``; ``loops``,
     ``done`` and the per-archive iteration count ``x`` as ``(a,)``; the

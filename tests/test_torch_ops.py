@@ -205,7 +205,7 @@ class TestScalers:
                                        5.0, 5.0).numpy()
         np.testing.assert_array_equal(_bits(got), _bits(want))
         # Each package's own diagnostics: identical decisions.
-        own = tstats.comprehensive_stats(_t(weighted), _t(valid), 5.0, 5.0).numpy()
+        own = tstats.scale_and_combine(*td, _t(valid), 5.0, 5.0).numpy()
         np.testing.assert_array_equal(own >= 1, want >= 1)
         assert (want >= 1).any()
 

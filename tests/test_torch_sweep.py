@@ -8,8 +8,10 @@ batched loop over a pair axis on ``device="cpu"``).  Masks, ``loops``,
 to the port's solo cleans with each pair's thresholds and, at (4, 4), to
 the numpy oracle.  Also: the grid chunked on a pretend device budget, the
 solo-clean reroute beneath one pair, the table and the NPZ against the JAX
-package's, the CLI's ``--sweep``, and the scalers with one threshold pair
-per archive bit-identical to the per-archive float calls.
+package's, the CLI's ``--sweep``, the scalers with one threshold pair
+per archive bit-identical to the per-archive float calls, and the shared
+first step (one fit for the broadcast pairs) bit-identical to the per-pair
+batch, with its counters.
 """
 
 from __future__ import annotations
@@ -32,9 +34,12 @@ from iterative_cleaner_tpu_torch.config import CleanConfig
 from iterative_cleaner_tpu_torch.core.cleaner import clean_cube
 from iterative_cleaner_tpu_torch.io.npz import NpzIO
 from iterative_cleaner_tpu_torch.io.synthetic import make_archive
+from iterative_cleaner_tpu_torch.backends import torch_backend as tb
 from iterative_cleaner_tpu_torch.models import sweep
+from iterative_cleaner_tpu_torch.obs import tracing
 from iterative_cleaner_tpu_torch.ops import stats as tstats
 from iterative_cleaner_tpu_torch.parallel import autoshard, sharded
+from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
 
 PAIRS = [(3.0, 3.0), (5.0, 5.0), (8.0, 2.5), (0.0, 5.0)]
 ZERO_WARNING = "threshold of exactly 0"
@@ -306,6 +311,113 @@ class TestPerPairThresholds:
         assert torch.equal(tstats.true_divide(x, thresh), want)
         assert torch.equal(tstats.true_divide(x[None].expand(3, 2, 3, 4), thresh),
                            want[None].expand(3, 2, 3, 4))
+
+
+class TestSharedFirstStep:
+    """The sweep's pairs share one cube and, until a pair's mask moves, one
+    mask: the first batched step fits the cube once and scales per pair.
+    Contiguous copies of the same inputs take the per-pair path by their
+    strides alone, and every output is the same bits."""
+
+    GRID = [(c, s) for c in (2.0, 3.0, 4.0, 6.0) for s in (2.0, 3.0, 5.0, 8.0)]
+
+    @staticmethod
+    def _pairs_batch(seed, pairs):
+        D, w0 = _cube(seed)
+        Dt, wt = torch.from_numpy(D.copy()), torch.from_numpy(w0.copy())
+        a = len(pairs)
+        cts = torch.tensor([c for c, _ in pairs], dtype=torch.float32)
+        sts = torch.tensor([s for _, s in pairs], dtype=torch.float32)
+        return (Dt.expand(a, *Dt.shape), wt.expand(a, *wt.shape),
+                (wt != 0).expand(a, *wt.shape), cts, sts)
+
+    @staticmethod
+    def _bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    @pytest.mark.parametrize("use_kernel", [False, True])
+    @pytest.mark.parametrize("max_iter", [1, 5])
+    @pytest.mark.parametrize("seed", [0, 5, 42, 140])
+    def test_bitwise_the_per_pair_batch(self, seed, max_iter, use_kernel):
+        Db, wb, vb, cts, sts = self._pairs_batch(seed, self.GRID)
+        kw = dict(max_iter=max_iter, pulse_region=(0.0, 0.0, 1.0), use_kernel=use_kernel)
+        before = tracing.snapshot()
+        got = sharded.batched_fused_clean(Db, wb, vb, cts, sts, **kw)
+        assert tracing.delta(before, "clean_batch_shared_steps") == 1
+        before = tracing.snapshot()
+        want = sharded.batched_fused_clean(Db.contiguous(), wb.contiguous(), vb.contiguous(),
+                                           cts, sts, **kw)
+        assert tracing.delta(before, "clean_batch_shared_steps") == 0
+        assert tracing.delta(before, "clean_batch_steps") == int(want[4].max())
+        assert got[5] is None and want[5] is None
+        # scores, weights, loops, done, x, history
+        for k in (0, 1, 2, 3, 4, 6):
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(self._bits(got[k]).numpy(),
+                                          self._bits(want[k]).numpy())
+        if max_iter == 5:
+            assert len(set(got[2].tolist())) > 1      # the pairs stop at different loops
+
+    @pytest.mark.parametrize("room,sizes", [(None, [4]), (1.5, [1, 1, 1, 1]), (2.5, [2, 2]),
+                                            (3.2, [3, 1])])
+    def test_one_shared_step_per_dispatch(self, monkeypatch, fresh_announcements, room,
+                                          sizes):
+        """A dispatch of more than one pair shares its first step; a chunk of
+        one pair has nothing to share.  Every iteration of every dispatch
+        counts as a batched step."""
+        D, w0 = _cube()
+        cfg = _cfg()
+        if room is not None:
+            one = autoshard.batch_working_set_bytes(D.shape, cfg, False, 1)
+            monkeypatch.setenv("ICT_HBM_BYTES",
+                               str(int(room * one / autoshard.HBM_USABLE_FRACTION)))
+        dispatches = []
+        real = sharded.batched_fused_clean
+
+        def spy(Db, *args, **kw):
+            out = real(Db, *args, **kw)
+            dispatches.append((Db.shape[0], int(out[4].max())))
+            return out
+
+        monkeypatch.setattr(sharded, "batched_fused_clean", spy)
+        before = tracing.snapshot()
+        points = sweep.sweep_thresholds(D, w0, cfg, PAIRS, device="cpu")
+        assert [a for a, _ in dispatches] == sizes
+        assert tracing.delta(before, "clean_batch_shared_steps") == sum(a > 1 for a in sizes)
+        assert tracing.delta(before, "clean_batch_steps") == sum(x for _, x in dispatches)
+        for p, q in zip(points, _port_points(4)):
+            _same_point(p, q)
+
+    def test_contiguous_batches_count_none(self):
+        """``sharded_clean`` uploads each archive into its own slice: no
+        stride-0 axis, even where every archive is the same cube."""
+        D, w0 = _cube()
+        cfg = _cfg()
+        mesh = make_mesh(devices=["cpu"])
+        for Db, w0b in ((np.stack([D, _cube(5)[0]]), np.stack([w0, _cube(5)[1]])),
+                        ([D] * 3, [w0] * 3)):
+            before = tracing.snapshot()
+            sharded.sharded_clean(Db, w0b, cfg, mesh)
+            assert tracing.delta(before, "clean_batch_steps") > 0
+            assert tracing.delta(before, "clean_batch_shared_steps") == 0
+
+    @pytest.mark.parametrize("use_kernel,fit", [(False, "fit_and_subtract"),
+                                                (True, "fused_fit_moments")])
+    def test_fit_sees_one_archive_first(self, monkeypatch, use_kernel, fit):
+        pairs = [(4.0, 4.0), (5.0, 6.0), (6.0, 5.0)]
+        Db, wb, vb, cts, sts = self._pairs_batch(140, pairs)
+        seen = []
+        real = getattr(tb, fit)
+
+        def spy(D, *args, **kw):
+            seen.append(D.shape[0])
+            return real(D, *args, **kw)
+
+        monkeypatch.setattr(tb, fit, spy)
+        out = sharded.batched_fused_clean(Db, wb, vb, cts, sts, max_iter=4,
+                                          pulse_region=(0.0, 0.0, 1.0), use_kernel=use_kernel)
+        assert int(out[4].max()) > 1
+        assert seen == [1] + [len(pairs)] * (int(out[4].max()) - 1)
 
 
 class TestSweepCLI:
