@@ -8,9 +8,7 @@ import numpy as np
 import pytest
 
 from bench_port import compare, gen, harness
-from bench_port.tests.conftest import TINY, make_tiny_root
-
-CELLS = ["lofar.archives", "wideband.clean", "lofar.sweep"]
+from bench_port.tests.conftest import CELLS, make_tiny_root
 
 
 @pytest.fixture(scope="module")
@@ -41,8 +39,8 @@ def test_reference_equals_the_port(root, workload, seed):
 
 @pytest.mark.parametrize("kind", ["raw_archive", "preprocessed_cube"])
 def test_generator_repeats_from_its_seed(kind):
-    cfg = {**json.loads((harness.REPO / "bench_port/configs/lofar_hba.json").read_text()),
-           **TINY["lofar_hba"]}
+    cfg = json.loads((harness.REPO / "bench_port/configs/lofar_hba.json").read_text())
+    cfg.update(cfg["cpu_shape"])
     a, b, c = (getattr(gen, kind)(cfg, s, "cpu") for s in (7, 7, 8))
     for key in a:
         if isinstance(a[key], np.ndarray):

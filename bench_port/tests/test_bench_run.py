@@ -1,5 +1,6 @@
 """Whole runs on the CPU at small shapes: lookups by name, a cell added by
-files alone, the result line, the control and the planted faults."""
+files alone, and for every cell of BENCHMARK.json the result line, the
+control and the faults planted underneath its entry point."""
 
 import json
 import os
@@ -7,13 +8,13 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from bench_port import compare, harness
 from bench_port.control import control_readings
-from bench_port.tests.conftest import REPO, make_tiny_root
+from bench_port.tests.conftest import CELLS, REPO, make_tiny_root
 
-CELLS = ["lofar.archives", "wideband.clean", "lofar.sweep"]
 SEED = 2**31 + 3
 
 
@@ -65,43 +66,53 @@ class Entry(Base):
 """
 
 
-def test_cell_added_by_files_alone(tmp_path):
-    """A configuration, two traffic mixes (one on an entry point of its own),
-    and a per-layer metric that exist only as new files and entries are
-    found by name and reported."""
-    root = make_tiny_root(tmp_path)
-    spec = json.loads((root / "BENCHMARK.json").read_text())
-    cfg = json.loads((root / "bench_port/configs/lofar_hba.json").read_text())
-    cfg["nsub"] = 8
-    (root / "bench_port/configs/lofar_tiny.json").write_text(json.dumps(cfg))
-    (root / "bench_port/traffic/quiet.json").write_text(json.dumps(
-        {"entry": "surgical", "inputs": 2, "trace_inputs": 2, "rfi": {"n_bad_subints": 0}}))
-    (root / "bench_port/traffic/fused.json").write_text(json.dumps(
+def test_cell_added_by_files_alone(tmp_path, monkeypatch):
+    """A configuration (the LOFAR archive in full polarisation, Coherence),
+    a traffic mix on an entry point of its own, their cells and a per-layer
+    metric, added to a copy of the benchmark as new files and entries in its
+    BENCHMARK.json before the small tree is made from it: each cell is found
+    by name, reported and correct, and the new entry's answer, altered, is
+    not."""
+    src = tmp_path / "src"
+    src.mkdir()
+    shutil.copy(REPO / "BENCHMARK.json", src / "BENCHMARK.json")
+    shutil.copytree(REPO / "bench_port", src / "bench_port",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    spec = json.loads((src / "BENCHMARK.json").read_text())
+    cfg = json.loads((src / "bench_port/configs/lofar_hba.json").read_text())
+    cfg.update(name="lofar_fullpol", npol=4, state="Coherence",
+               cpu_shape={"nsub": 8, "nchan": 32, "nbin": 64})
+    (src / "bench_port/configs/lofar_fullpol.json").write_text(json.dumps(cfg))
+    (src / "bench_port/traffic/fused.json").write_text(json.dumps(
         {"entry": "fused_cube", "inputs": 2, "trace_inputs": 2}))
-    (root / "bench_port/entries/fused_cube.py").write_text(FUSED_ENTRY)
-    (root / "bench_port/metrics/inputs_traced.py").write_text(
+    (src / "bench_port/entries/fused_cube.py").write_text(FUSED_ENTRY)
+    (src / "bench_port/metrics/inputs_traced.py").write_text(
         "def read(ctx):\n    return float(len(ctx.trace.inputs))\n")
-    spec["configs"].append({"name": "lofar_tiny", "source": "https://example.org/x",
-                            "file": "bench_port/configs/lofar_tiny.json",
-                            "reduced": ["nsub"], "why": "throwaway"})
-    new = ["tiny.quiet", "tiny.fused"]
-    spec["workloads"] += [{"name": name, "config": "lofar_tiny", "traffic": traffic,
-                           "chips": 1, "why": "throwaway"}
-                          for name, traffic in zip(new, ("quiet", "fused"))]
+    spec["configs"].append({"name": "lofar_fullpol", "source": "https://example.org/x",
+                            "file": "bench_port/configs/lofar_fullpol.json",
+                            "reduced": [], "why": "throwaway"})
+    new = {"fullpol.archives": "archives", "fullpol.fused": "fused"}
+    spec["workloads"] += [{"name": name, "config": "lofar_fullpol", "traffic": traffic,
+                           "chips": 1, "why": "throwaway"} for name, traffic in new.items()]
     for m in spec["end_to_end"]:
         if "workloads" in m:
-            m["workloads"] += new
+            m["workloads"] += list(new)
     spec["per_layer"].append({"name": "inputs_traced", "unit": "inputs", "better": "higher",
                               "source": "program_span", "layer": "harness",
-                              "moves": "archives_per_s", "workloads": new})
-    (root / "BENCHMARK.json").write_text(json.dumps(spec))
-    for name in new:
+                              "moves": "archives_per_s", "workloads": list(new)})
+    (src / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    root = make_tiny_root(tmp_path / "root", src=src)
+    for name, traffic in new.items():
+        mix = json.loads((root / "bench_port/traffic" / f"{traffic}.json").read_text())
         out = run(root, name, trace=True)
         assert out["correct"] is True, out["checks"]
-        assert out["metrics"]["inputs_traced"]["value"] == 2.0
+        assert out["metrics"]["inputs_traced"]["value"] == mix["trace_inputs"]
         out = run(root, name)
-        assert out["correct"] is True and "archives_per_s" in out["metrics"]
+        assert out["correct"] is True and "archives_per_s" in out["metrics"], out["checks"]
     assert harness.entry_class("fused_cube", root).makes == "preprocessed_cube"
+    _plant(monkeypatch, "fused_cube", "answer_altered")
+    assert run(root, "fullpol.fused")["correct"] is False
 
 
 def test_a_missing_entry_is_named(tiny_root):
@@ -126,7 +137,29 @@ def _flip(fn):
     return altered
 
 
-def _plant(monkeypatch, workload, fault):
+def _served_altered(monkeypatch):
+    """Every entry the harness makes serves its answer with the first
+    part's first weight altered: the fault of an entry point whose own
+    calls into the program this file does not know."""
+    make = harness.make_entry
+
+    def made(*args, **kw):
+        entry = make(*args, **kw)
+        serve = entry.serve
+
+        def altered(inp):
+            out = serve(inp)
+            w = np.array(out[0]["weights"], copy=True)
+            w.flat[0] = 1.0 if w.flat[0] == 0 else 0.0
+            out[0]["weights"] = w
+            return out
+        entry.serve = altered
+        return entry
+    monkeypatch.setattr(harness, "make_entry", made)
+
+
+def _plant(monkeypatch, entry, fault):
+    """Plant ``fault`` underneath the cells whose traffic names ``entry``."""
     from iterative_cleaner_tpu_torch.backends import torch_backend
     from iterative_cleaner_tpu_torch.core import cleaner
     from iterative_cleaner_tpu_torch.models import surgical, sweep
@@ -134,7 +167,7 @@ def _plant(monkeypatch, workload, fault):
     from iterative_cleaner_tpu_torch.parallel import sharded
 
     if fault == "state_unchanged":
-        if workload == "lofar.sweep":
+        if entry == "sweep":
             step = sharded.batched_clean_step
             monkeypatch.setattr(sharded, "batched_clean_step",
                                 lambda D, w0, v, w_prev, *a, **k: (step(D, w0, v, w_prev, *a, **k)[0],
@@ -151,12 +184,14 @@ def _plant(monkeypatch, workload, fault):
             return 2 * plain(D[:keep], weights[:keep], init)
         monkeypatch.setattr(template, "build_template_plain", half)
     elif fault == "answer_altered":
-        if workload == "lofar.sweep":
+        if entry == "sweep":
             monkeypatch.setattr(sweep, "sweep_thresholds", _flip(sweep.sweep_thresholds))
-        elif workload == "lofar.archives":
+        elif entry == "surgical":
             monkeypatch.setattr(surgical, "clean_cube", _flip(cleaner.clean_cube))
-        else:
+        elif entry == "clean_cube":
             monkeypatch.setattr(cleaner, "clean_cube", _flip(cleaner.clean_cube))
+        else:
+            _served_altered(monkeypatch)
     elif fault == "half_the_pairs":
         inner = sweep.sweep_thresholds
         monkeypatch.setattr(sweep, "sweep_thresholds",
@@ -164,13 +199,23 @@ def _plant(monkeypatch, workload, fault):
                                                                  pairs[:len(pairs) // 2], **k))
 
 
-FAULTS = [(w, f) for w in CELLS for f in ("state_unchanged", "half_left_out", "answer_altered")]
-FAULTS.append(("lofar.sweep", "half_the_pairs"))
+#: The faults planted in the program underneath each entry point's calls;
+#: a cell on any other entry gets ``answer_altered`` on the answer it serves.
+PLANTED = {entry: ("state_unchanged", "half_left_out", "answer_altered")
+           for entry in ("surgical", "clean_cube", "sweep")}
+PLANTED["sweep"] += ("half_the_pairs",)
+
+
+def _entry_of(workload):
+    return harness.find_cell(harness.load_spec(), workload)[2]["entry"]
+
+
+FAULTS = [(w, f) for w in CELLS for f in PLANTED.get(_entry_of(w), ("answer_altered",))]
 
 
 @pytest.mark.parametrize("workload, fault", FAULTS)
 def test_planted_fault_is_not_correct(tiny_root, monkeypatch, workload, fault):
-    _plant(monkeypatch, workload, fault)
+    _plant(monkeypatch, _entry_of(workload), fault)
     out = run(tiny_root, workload)
     assert out["correct"] is False, out["checks"]
 

@@ -1,5 +1,10 @@
-"""BENCHMARK.json against the benchmark's contract: names, units, keys, files."""
+"""BENCHMARK.json against the benchmark's contract: names, units, keys, files;
+each configuration file's ``cpu_shape``, the small shape at which these
+tests run it (nothing in a run reads the key); and no test module naming
+every configuration or every cell by hand, so that a configuration and its
+cells join the tests by data files and entries in BENCHMARK.json alone."""
 
+import ast
 import json
 import re
 from pathlib import Path
@@ -89,3 +94,36 @@ def test_configs_and_traffic_files():
     for w in SPEC["workloads"]:
         _cell, _config, traffic = harness.find_cell(SPEC, w["name"])
         assert (REPO / "bench_port" / "entries" / f"{traffic['entry']}.py").is_file()
+
+
+@pytest.mark.parametrize("config", SPEC["configs"], ids=lambda c: c["name"])
+def test_configuration_carries_its_cpu_shape(config):
+    cfg = json.loads((REPO / config["file"]).read_text())
+    shape = cfg["cpu_shape"]
+    assert set(shape) == {"nsub", "nchan", "nbin"}
+    for key, size in shape.items():
+        assert type(size) is int and 0 < size <= cfg[key], (key, size, cfg[key])
+
+
+def literal_strings(path: Path):
+    """The strings of each list, tuple and set literal of ``path``, and the
+    keys of each dict literal, one set a literal."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Dict):
+            items = node.keys
+        elif isinstance(node, (ast.List, ast.Tuple, ast.Set)):
+            items = node.elts
+        else:
+            continue
+        yield {e.value for e in items if isinstance(e, ast.Constant) and isinstance(e.value, str)}
+
+
+@pytest.mark.parametrize("section", ["configs", "workloads"])
+@pytest.mark.parametrize("path", sorted((REPO / "bench_port" / "tests").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_no_test_names_every_entry_by_hand(path, section):
+    """A list or dict of every configuration or every cell is taken from
+    BENCHMARK.json; a test of one cell's own feature may name that cell."""
+    names = {e["name"] for e in SPEC[section]}
+    if len(names) > 1:
+        assert not any(names <= found for found in literal_strings(path))
