@@ -27,6 +27,10 @@ The phases of a clean, each on the thread that runs it:
   device route the kernels' launches, after the plane's ``clean_upload``);
   on the native host route the gauge ``clean_preprocess_threads`` holds the
   threads the last pass ran on (``native.host_pass``);
+  ``clean_batch_preprocess`` — the calling thread's wait for the directory
+  batch's preprocessing of one call's archives on its small pool
+  (``parallel/batch.clean_archives``), each archive's ``clean_preprocess``
+  on a pool thread;
 - ``clean_warmup`` — the warm-up of ``backends/torch_backend.start_precompile``,
   on its ``ict-precompile`` thread; ``clean_warmup_wait`` — the caller's
   join of that thread (``models/surgical.SurgicalCleaner.clean``);
@@ -35,19 +39,26 @@ The phases of a clean, each on the thread that runs it:
   scans;
 - ``clean_upload`` — the copies of the cube and its weights to the device
   (``backends/torch_backend.upload``: the stepwise and fused routes, the
-  sweep, the chunked route's weights, the device preprocess's raw plane);
+  sweep, the chunked route's weights, the device preprocess's raw plane;
+  ``parallel/sharded.shard_batch``: the batch's archives, each copied
+  into its slice of the device tensors);
   the counter ``clean_upload_bytes`` adds the bytes copied,
   ``clean_upload_staged`` the copies that went through pinned pieces
   (``ingest/staging.py``), whose bytes the gauge
   ``clean_upload_pinned_bytes`` holds;
-- ``clean_loop`` — the convergence loop up to its last host fetch; in the
-  one-device batch's loop (``parallel/sharded.batched_clean_step``: the
-  sweep, the directory batch, the service's dispatch) the counter
-  ``clean_batch_steps`` adds every iteration and ``clean_batch_shared_steps``
-  those that fitted one archive for a batch that repeats it (the sweep's
-  first);
+- ``clean_loop`` — the convergence loop up to its last host fetch (in
+  ``parallel/sharded.sharded_clean``: the batched loop on one device, the
+  lockstep loop on a mesh); in the one-device batch's loop
+  (``parallel/sharded.batched_clean_step``: the sweep, the directory batch,
+  the service's dispatch) the counter ``clean_batch_steps`` adds every
+  iteration and ``clean_batch_shared_steps`` those that fitted one archive
+  for a batch that repeats it (the sweep's first); each dispatch of the
+  directory batch (``parallel/batch._finish_bucket``: the CLI's
+  ``--sharded_batch``, the service) counts ``clean_batch_dispatches`` and
+  its archives in ``clean_batch_archives``;
 - ``clean_finalize`` — what follows the loop: the surgical cleaner's
-  bad-parts sweep, output policy, residual and audit; the sweep's points.
+  bad-parts sweep, output policy, residual and audit; the sweep's points;
+  a batch dispatch's per-archive bad-parts sweep.
 
 Everything is process-global on purpose: every layer (driver, batch
 dispatch, online session) accounts into one place without plumbing a

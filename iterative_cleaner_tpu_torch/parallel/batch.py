@@ -2,12 +2,16 @@
 dispatches on the mesh, keep per-archive failure isolation.
 
 Port of ``iterative_cleaner_tpu/parallel/batch.py:33-261``: ``BatchItem``,
-``_finish_bucket``, ``clean_directory_batch`` (load everything with a small
-thread pool, then one bucket at a time) and ``clean_directory_streaming``
-(a throttled loader pool; a bucket is dispatched as soon as enough
-same-shape archives have arrived).  The mesh defaults to this process's
-cards (``parallel/multihost.local_mesh``, as the JAX package's
-``make_mesh()``), with archives over ``dp``.  Where the JAX package fits a
+``_finish_bucket``, ``clean_directory_batch`` (decode everything with a
+small thread pool, then :func:`clean_archives`) and
+``clean_directory_streaming`` (a throttled loader pool; a bucket is
+dispatched as soon as enough same-shape archives have arrived).
+:func:`clean_archives` is the batch's in-memory entry: it preprocesses
+the archives on the same small pool (phase ``clean_batch_preprocess`` on
+the calling thread, each archive's ``clean_preprocess`` on a pool thread),
+buckets them by exact shape and dispatches one bucket at a time.  The
+mesh defaults to this process's cards (``parallel/multihost.local_mesh``,
+as the JAX package's ``make_mesh()``), with archives over ``dp``.  Where the JAX package fits a
 bucket by spreading it over the mesh's ``dp`` axis, the port cuts a bucket
 into dispatches of at most ``dp`` times
 ``parallel/autoshard.archives_per_dispatch`` archives — the most whose
@@ -34,7 +38,8 @@ from iterative_cleaner_tpu_torch.config import CleanConfig
 from iterative_cleaner_tpu_torch.core.cleaner import _iteration_info
 from iterative_cleaner_tpu_torch.io.base import Archive, get_io
 from iterative_cleaner_tpu_torch.models.surgical import finalize_weights
-from iterative_cleaner_tpu_torch.obs import forensics
+from iterative_cleaner_tpu_torch.obs import forensics, tracing
+from iterative_cleaner_tpu_torch.obs import memory as obs_memory
 from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
 from iterative_cleaner_tpu_torch.parallel.autoshard import archives_per_dispatch
 from iterative_cleaner_tpu_torch.parallel.multihost import local_mesh
@@ -92,7 +97,13 @@ def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None,
     only when a flag differs from 1.  ``want_history`` additionally fetches
     the per-archive mask histories and derives each item's per-iteration
     forensics records and termination reason (off by default — extra host
-    traffic)."""
+    traffic).
+
+    Each dispatch counts ``clean_batch_dispatches`` and its archives in
+    ``clean_batch_archives``, records the card's peak under the route
+    ``sharded_batch`` (``obs/memory.observe_route``, failed dispatches
+    too) and finalizes its archives in one ``clean_finalize`` phase,
+    before ``on_item`` sees any of them."""
     shape = tuple(np.shape(cubes[0]))
     k = _dispatch_size(shape, cfg, mesh)
     if k == 0:
@@ -108,48 +119,65 @@ def _finish_bucket(items, idxs, cubes, w0s, cfg, mesh, on_item=None,
     k = len(idxs) if k is None else k
     for lo in range(0, len(idxs), k):
         hi = min(lo + k, len(idxs))
-        out = sharded_clean(cubes[lo:hi], w0s[lo:hi], cfg, mesh, want_history=want_history)
+        tracing.count("clean_batch_dispatches")
+        tracing.count("clean_batch_archives", float(hi - lo))
+        try:
+            out = sharded_clean(cubes[lo:hi], w0s[lo:hi], cfg, mesh, want_history=want_history)
+        finally:
+            # Read while this dispatch is the freshest thing in the
+            # allocator's peak.
+            obs_memory.observe_route("sharded_batch")
         test_b, w_b, loops_b, done_b = out[:4]
         cubes[lo:hi] = w0s[lo:hi] = [None] * (hi - lo)
-        for j in range(hi - lo):
-            item = items[idxs[lo + j]]
-            item.rfi_frac = float((w_b[j] == 0).mean())
-            item.weights, _nbs, _nbc = finalize_weights(w_b[j], cfg)
-            item.test_results = test_b[j]
-            item.loops = int(loops_b[j])
-            item.converged = bool(done_b[j])
-            if want_history:
-                hist = out[5][j][: int(out[4][j]) + 1]
-                item.iterations = [_iteration_info(k, hist[k - 1], hist[k])
-                                   for k in range(1, len(hist))]
-                item.termination = forensics.termination_reason(item.converged, hist)
-            if on_item is not None:
-                on_item(idxs[lo + j], item)
+        with tracing.phase("clean_finalize"):
+            for j in range(hi - lo):
+                item = items[idxs[lo + j]]
+                item.rfi_frac = float((w_b[j] == 0).mean())
+                item.weights, _nbs, _nbc = finalize_weights(w_b[j], cfg)
+                item.test_results = test_b[j]
+                item.loops = int(loops_b[j])
+                item.converged = bool(done_b[j])
+                if want_history:
+                    hist = out[5][j][: int(out[4][j]) + 1]
+                    item.iterations = [_iteration_info(k, hist[k - 1], hist[k])
+                                       for k in range(1, len(hist))]
+                    item.termination = forensics.termination_reason(item.converged, hist)
+        if on_item is not None:
+            for i in idxs[lo:hi]:
+                on_item(i, items[i])
 
 
-def clean_directory_batch(paths: list[str], cfg: CleanConfig, mesh=None) -> list[BatchItem]:
-    """Clean many archives; same-shape archives share batched dispatches.
+def clean_archives(archives: list[Archive], cfg: CleanConfig, mesh=None) -> list[BatchItem]:
+    """Clean in-memory archives; same-shape archives share batched
+    dispatches.  Returns one BatchItem per archive, in order (``path``
+    empty).
 
-    A corrupt archive fails alone — it is reported in its BatchItem and
-    never takes the bucket down.  Every decoded cube stays in host memory
-    until its bucket is dispatched (shapes are only known after the load);
-    a bucket's cubes are released as its dispatches return.
+    An archive that fails to preprocess fails alone — it is reported in its
+    BatchItem and never takes the bucket down.  Every preprocessed cube
+    stays in host memory until its bucket is dispatched; a bucket's cubes
+    are released as its dispatches return.
     """
+    return _clean_items([BatchItem(path="", archive=a) for a in archives], cfg, mesh)
+
+
+def _clean_items(items: list[BatchItem], cfg: CleanConfig, mesh) -> list[BatchItem]:
+    """:func:`clean_archives` of the items that hold an archive; an item
+    without one (its decode failed) is left as it is."""
     _require_torch_backend(cfg)
     if mesh is None:
         mesh = local_mesh()
-    items = [BatchItem(path=p) for p in paths]
 
-    def load(item: BatchItem):
+    def prepare(item: BatchItem):
+        if item.archive is None:
+            return None
         try:
-            item.archive, D, w0 = _load_and_preprocess(item.path)
-            return D, w0
+            return preprocess(item.archive)
         except Exception as exc:  # noqa: BLE001 — isolate the bad archive
             item.error = str(exc)
             return None
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        loaded = list(pool.map(load, items))
+    with tracing.phase("clean_batch_preprocess"), ThreadPoolExecutor(max_workers=4) as pool:
+        loaded = list(pool.map(prepare, items))
 
     buckets: dict[tuple, list[int]] = defaultdict(list)
     for i, out in enumerate(loaded):
@@ -162,6 +190,24 @@ def clean_directory_batch(paths: list[str], cfg: CleanConfig, mesh=None) -> list
             loaded[i] = None
         _finish_bucket(items, idxs, cubes, w0s, cfg, mesh)
     return items
+
+
+def clean_directory_batch(paths: list[str], cfg: CleanConfig, mesh=None) -> list[BatchItem]:
+    """Clean many archive files: each is decoded on a small thread pool,
+    then :func:`clean_archives` runs on them.  A file that fails to decode
+    fails alone, in its BatchItem."""
+    _require_torch_backend(cfg)
+    items = [BatchItem(path=p) for p in paths]
+
+    def decode(item: BatchItem) -> None:
+        try:
+            item.archive = get_io(item.path).load(item.path)
+        except Exception as exc:  # noqa: BLE001 — isolate the bad archive
+            item.error = str(exc)
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        list(pool.map(decode, items))
+    return _clean_items(items, cfg, mesh)
 
 
 def clean_directory_streaming(paths: list[str], cfg: CleanConfig, mesh=None,

@@ -240,7 +240,7 @@ def _upload(cubes, weights, take, subints, weight_rows, device):
     """The archives ``take`` of a batch on ``device``: their subints
     ``[lo, hi)`` and their weights (those rows where ``weight_rows``, else
     whole), each archive copied into its slice of one preallocated
-    tensor."""
+    tensor; the bytes copied count in ``clean_upload_bytes``."""
     lo, hi = subints
     wlo, whi = subints if weight_rows else (0, np.shape(weights[0])[0])
     shape = np.shape(cubes[0])
@@ -257,6 +257,7 @@ def _upload(cubes, weights, take, subints, weight_rows, device):
             out_D[j].copy_(torch.from_numpy(np.ascontiguousarray(cubes[src][lo:hi], np.float32)))
             out_w[j].copy_(torch.from_numpy(
                 np.ascontiguousarray(weights[src][wlo:whi], np.float32)))
+    tracing.count("clean_upload_bytes", float(out_D.nbytes + out_w.nbytes))
     return out_D, out_w
 
 
@@ -276,7 +277,8 @@ def shard_batch(Db, w0b, mesh):
     whole weight maps (the scalers need every subint's); with several,
     two lists in the rank's device order as on a mesh over this process's
     devices, for the positions the rank holds.  A rank outside the mesh
-    uploads nothing and gets ``(None, None)``."""
+    uploads nothing and gets ``(None, None)``.  The uploads run in the
+    ``clean_upload`` phase."""
     cubes, weights = list(Db), list(w0b)
     if len(cubes) != len(weights):
         raise ValueError(f"{len(cubes)} cubes but {len(weights)} weight maps")
@@ -291,19 +293,20 @@ def shard_batch(Db, w0b, mesh):
     if (mesh.is_local or mesh.spans_ranks) and sp > shape[0]:
         raise ValueError(f"sp={sp} devices for {shape[0]} subints: a device would hold none")
     bounds = subint_bounds(shape[0], sp)
-    if not mesh.spans_ranks and not mesh.is_local:
-        return _upload(cubes, weights, range(len(cubes)), (0, shape[0]), False, mesh.device)
-    if mesh.spans_ranks and mesh.coords is None:
-        return None, None
-    if mesh.spans_ranks and len(mesh.devices) == 1:
-        dp_index, sp_index = mesh.coords
-        return _upload(cubes, weights, range(dp_index, len(cubes), dp), bounds[sp_index], False,
-                       mesh.device)
-    places = (mesh.positions if mesh.spans_ranks
-              else [divmod(p, sp) for p in range(len(mesh.devices))])
-    parts = [_upload(cubes, weights, range(i, len(cubes), dp), bounds[k], True, dev)
-             for (i, k), dev in zip(places, mesh.devices)]
-    return [D for D, _ in parts], [w for _, w in parts]
+    with tracing.phase("clean_upload"):
+        if not mesh.spans_ranks and not mesh.is_local:
+            return _upload(cubes, weights, range(len(cubes)), (0, shape[0]), False, mesh.device)
+        if mesh.spans_ranks and mesh.coords is None:
+            return None, None
+        if mesh.spans_ranks and len(mesh.devices) == 1:
+            dp_index, sp_index = mesh.coords
+            return _upload(cubes, weights, range(dp_index, len(cubes), dp), bounds[sp_index], False,
+                           mesh.device)
+        places = (mesh.positions if mesh.spans_ranks
+                  else [divmod(p, sp) for p in range(len(mesh.devices))])
+        parts = [_upload(cubes, weights, range(i, len(cubes), dp), bounds[k], True, dev)
+                 for (i, k), dev in zip(places, mesh.devices)]
+        return [D for D, _ in parts], [w for _, w in parts]
 
 
 def sharded_clean_single(D: np.ndarray, w0: np.ndarray, cfg: CleanConfig, mesh=None):
@@ -348,17 +351,19 @@ def sharded_clean(Db, w0b, cfg: CleanConfig, mesh=None, want_history: bool = Fal
     narch, nsub, nchan, nbin = Dt.shape
     # No x64 handling, as in the JAX package (its compile_cache.py:52-62):
     # the batch runs float32 and routes as it does without x64.
-    test, w_final, loops, done, _x, _r, _hist = batched_fused_clean(
-        Dt, w0t, w0t != 0, float(cfg.chanthresh), float(cfg.subintthresh),
-        max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
-        use_kernel=kernel_for(cfg.replace(x64=False), nbin, dev))
-    del Dt
-    # One fetch: loops, done and x are small integers, exact in float32.
-    parts = [test.reshape(-1), w_final.reshape(-1), loops.to(test.dtype),
-             done.to(test.dtype)]
-    if want_history:
-        parts.append(_x.to(test.dtype))
-    packed = torch.cat(parts).cpu().numpy()
+    use_kernel = kernel_for(cfg.replace(x64=False), nbin, dev)
+    with tracing.phase("clean_loop"):
+        test, w_final, loops, done, _x, _r, _hist = batched_fused_clean(
+            Dt, w0t, w0t != 0, float(cfg.chanthresh), float(cfg.subintthresh),
+            max_iter=int(cfg.max_iter), pulse_region=tuple(cfg.pulse_region),
+            use_kernel=use_kernel)
+        del Dt
+        # One fetch: loops, done and x are small integers, exact in float32.
+        parts = [test.reshape(-1), w_final.reshape(-1), loops.to(test.dtype),
+                 done.to(test.dtype)]
+        if want_history:
+            parts.append(_x.to(test.dtype))
+        packed = torch.cat(parts).cpu().numpy()
     n = narch * nsub * nchan
     out = (packed[:n].reshape(narch, nsub, nchan),
            packed[n:2 * n].reshape(narch, nsub, nchan).copy(),
@@ -403,14 +408,16 @@ def _local_clean(Db, w0b, cfg: CleanConfig, mesh, want_history: bool):
         w0s.append(w0t)
         order.extend(range(i, narch, dp))
     del Ds
-    outs = _converge_lockstep(steps, w0s, int(cfg.max_iter))
     n = nsub * nchan
-    # One fetch: per archive its scores, its weights, loops, converged and
-    # iterations (small integers, exact in float32), in slice order.
-    packs = [torch.cat((test.reshape(-1, n), w.reshape(-1, n), loops[:, None].to(test.dtype),
-                        done[:, None].to(test.dtype), xs[:, None].to(test.dtype)), dim=1)
-             for test, w, loops, done, xs, _r, _hist in outs]
-    packed = torch.cat(_meet(packs, mesh.device)).cpu().numpy()
+    with tracing.phase("clean_loop"):
+        outs = _converge_lockstep(steps, w0s, int(cfg.max_iter))
+        # One fetch: per archive its scores, its weights, loops, converged
+        # and iterations (small integers, exact in float32), in slice order.
+        packs = [torch.cat((test.reshape(-1, n), w.reshape(-1, n),
+                            loops[:, None].to(test.dtype), done[:, None].to(test.dtype),
+                            xs[:, None].to(test.dtype)), dim=1)
+                 for test, w, loops, done, xs, _r, _hist in outs]
+        packed = torch.cat(_meet(packs, mesh.device)).cpu().numpy()
     rows = np.empty_like(packed)
     rows[order] = packed
     out = (rows[:, :n].reshape(narch, nsub, nchan), rows[:, n:2 * n].reshape(narch, nsub, nchan),
@@ -502,7 +509,8 @@ def _rank_clean(Db, w0b, cfg: CleanConfig, mesh):
 
             steps.append(step)
             w0s.append(w0t)
-        outs = _converge_lockstep(steps, w0s, int(cfg.max_iter))
+        with tracing.phase("clean_loop"):
+            outs = _converge_lockstep(steps, w0s, int(cfg.max_iter))
         for (i, *_), (test, w_final, loops, done, *_rest) in zip(slices, outs):
             a = test.shape[0]
             rows[i - mesh.coords[0], :a] = torch.cat(

@@ -369,9 +369,6 @@ class DispatchWorker(threading.Thread):
                 # below would never see them again.
                 for e in entries:
                     self._record_cost(e.job)
-            # Peak HBM attributable to the service's batched route, read
-            # while this dispatch is the freshest thing in the stats.
-            obs_memory.observe_route("sharded_batch")
         # The cost model of this bucket's dispatch (obs/memory's stand-in
         # for XLA's static accounting: the two kernels' bytes and
         # operations of one iteration and the batched peak), memoized per

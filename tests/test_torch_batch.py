@@ -404,6 +404,71 @@ class TestDirectoryBatch:
             batch.clean_directory_batch([], CleanConfig(backend="numpy"), mesh=_cpu_mesh())
 
 
+class TestCleanArchives:
+    """The batch's in-memory entry, ``parallel/batch.clean_archives``."""
+
+    @staticmethod
+    def _archives(seeds, nsub=8):
+        return [make_archive(nsub=nsub, nchan=16, nbin=64, seed=s) for s in seeds]
+
+    def test_matches_the_jax_batched_route(self):
+        cfg = CleanConfig(backend="torch")
+        items = batch.clean_archives(self._archives(MIXED_SEEDS), cfg, mesh=_cpu_mesh())
+        Db, w0b = _batch(SMALL, MIXED_SEEDS)
+        want = jax_batched(jnp.asarray(Db), jnp.asarray(w0b), jnp.asarray(w0b != 0),
+                           cfg.chanthresh, cfg.subintthresh, max_iter=cfg.max_iter,
+                           pulse_region=tuple(cfg.pulse_region), use_pallas=False)
+        assert [it.loops for it in items] == [2, 3, 3, 2]    # they stop apart
+        for j, it in enumerate(items):
+            assert it.error is None and it.path == ""
+            np.testing.assert_array_equal(it.weights, np.asarray(want[1][j]))
+            assert (it.loops, it.converged) == (int(want[2][j]), bool(want[3][j]))
+            assert _drift(it.test_results, np.asarray(want[0][j])) <= DRIFT_BOUND
+
+    def test_bit_identical_to_the_directory_route(self, tmp_path):
+        archives = self._archives(MIXED_SEEDS)
+        paths = []
+        for k, ar in enumerate(archives):
+            paths.append(str(tmp_path / f"m{k}.npz"))
+            NpzIO().save(ar, paths[-1])
+        cfg = CleanConfig(backend="torch", bad_chan=0.05, bad_subint=0.05)
+        got = batch.clean_archives(archives, cfg, mesh=_cpu_mesh())
+        files = batch.clean_directory_batch(paths, cfg, mesh=_cpu_mesh())
+        for a, b in zip(got, files):
+            assert a.error is None and b.error is None
+            np.testing.assert_array_equal(a.weights, b.weights)
+            np.testing.assert_array_equal(_bits(a.test_results), _bits(b.test_results))
+            assert (a.loops, a.converged, a.rfi_frac) == (b.loops, b.converged, b.rfi_frac)
+
+    def test_mixed_shapes_and_a_failing_archive_stay_in_their_items(self, monkeypatch):
+        archives = self._archives((50, 51)) + self._archives((52,), nsub=4)
+        bad = make_archive(nsub=8, nchan=16, nbin=64, seed=53)
+        bad.state = "Bogus"                      # no polarisation rule takes it
+        archives.insert(1, bad)
+        sizes = []
+        real = batch.sharded_clean
+
+        def spy(Db, w0b, *a, **kw):
+            sizes.append((len(Db), np.shape(Db[0])[0]))
+            return real(Db, w0b, *a, **kw)
+
+        monkeypatch.setattr(batch, "sharded_clean", spy)
+        cfg = CleanConfig(backend="torch", max_iter=3)
+        items = batch.clean_archives(archives, cfg, mesh=_cpu_mesh())
+        assert [it.error is None for it in items] == [True, False, True, True]
+        assert "Bogus" in items[1].error and items[1].weights is None
+        assert sorted(sizes) == [(1, 4), (2, 8)]
+        for it, ar in zip(items, archives):
+            if it.error is None:
+                res = clean_cube(*preprocess(ar), cfg, device="cpu")
+                np.testing.assert_array_equal(it.weights, res.weights)
+                assert (it.loops, it.converged) == (res.loops, res.converged)
+
+    def test_numpy_backend_refused(self):
+        with pytest.raises(ValueError, match="backend='torch'"):
+            batch.clean_archives([], CleanConfig(backend="numpy"), mesh=_cpu_mesh())
+
+
 class TestStreaming:
     def test_streaming_matches_solo(self, tmp_path):
         paths = _write(tmp_path, 4)

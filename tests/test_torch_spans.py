@@ -25,6 +25,8 @@ from iterative_cleaner_tpu_torch.models.surgical import SurgicalCleaner
 from iterative_cleaner_tpu_torch.models.sweep import sweep_thresholds
 from iterative_cleaner_tpu_torch.obs import flight, memory, profiling, tracing
 from iterative_cleaner_tpu_torch.ops.preprocess import preprocess
+from iterative_cleaner_tpu_torch.parallel import autoshard, batch
+from iterative_cleaner_tpu_torch.parallel.mesh import make_mesh
 
 SHAPE = dict(nsub=8, nchan=32, nbin=64)
 PAIRS = [(4.0, 5.0), (5.0, 5.0)]
@@ -250,3 +252,40 @@ def test_route_gauges_read_the_allocator_alone(monkeypatch):
     # The device view keeps the card's capacity for /metrics.
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (1, 80_000))
     assert [r["bytes_limit"] for r in memory.device_snapshot()] == [80_000, 80_000]
+
+
+#: The directory batch's phases on the calling thread: the pool's
+#: preprocessing once a call, then per dispatch its upload, loop and
+#: finalize.
+BATCH_CALL = ["clean_batch_preprocess"]
+BATCH_DISPATCH = ["clean_upload", "clean_loop", "clean_finalize"]
+
+
+@pytest.mark.parametrize("devices, split", [(1, False), (1, True), (2, False)],
+                         ids=["one_dispatch", "two_dispatches", "two_devices"])
+def test_directory_batch_phases_and_counters(monkeypatch, devices, split):
+    archives = [make_archive(seed=s, **SHAPE) for s in (5, 6, 7)]
+    cubes = [preprocess(a) for a in archives]
+    if split:   # room for two archives a dispatch
+        one = autoshard.batch_working_set_bytes(cubes[0][0].shape, CFG, False, 1)
+        monkeypatch.setenv("ICT_HBM_BYTES", str(int(2.5 * one / autoshard.HBM_USABLE_FRACTION)))
+    routes = []
+    monkeypatch.setattr(memory, "observe_route", routes.append)
+    _reset()
+    mesh = make_mesh(devices=["cpu"] * devices)
+    items, evs = _profiled(lambda: batch.clean_archives(archives, CFG, mesh=mesh))
+    assert all(it.error is None for it in items)
+    dispatches = 2 if split else 1
+    caller = next(e for e in evs if e.name == "caller")
+    rows = sorted((e for e in evs if e.name.startswith("clean_") and e.thread == caller.thread),
+                  key=lambda e: e.time_range.start)
+    assert [e.name for e in rows] == BATCH_CALL + BATCH_DISPATCH * dispatches
+    snap = tracing.counters_snapshot()
+    assert snap["clean_batch_preprocess_n"] == 1
+    assert snap["clean_preprocess_n"] == len(archives)     # on the pool's threads
+    for name in BATCH_DISPATCH:
+        assert snap[f"{name}_n"] == dispatches, name
+    assert snap["clean_batch_dispatches"] == dispatches
+    assert snap["clean_batch_archives"] == len(archives)
+    assert snap["clean_upload_bytes"] == sum(D.nbytes + w0.nbytes for D, w0 in cubes)
+    assert routes == ["sharded_batch"] * dispatches
